@@ -22,18 +22,39 @@ Phases (any failure exits non-zero; no phase catches and continues):
 5. oracle — 3 seeds of RRG(40, 10) with 5 servers per switch: the HiGHS
    optimum <= dual ub <= 1.05 x optimum at 800 iterations, and the card's
    ub within rel 1e-3 of the same solve on the CPU (plain versions);
-6. summary — one JSON line with every kernel, then the device line last.
+6. LM kernels — K4 ``flash_attention`` (prefill B=8, L=1000, 24/8 heads,
+   D=128, bf16; decode Lq=1, lk_valid=1001 over a cache of 1016; aligned
+   L=1024) and K5 ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and
+   without s0) against their plain versions on the card, within stated
+   tolerances; CUDA-event times beside the bound and, for K4, beside
+   ``scaled_dot_product_attention`` (timed here only, as a yardstick);
+7. minitron-4b served at full width and depth (32 layers, float32
+   parameters, bf16 compute) through ``repro_torch.launch.serve.generate``:
+   8 prompts of 1000 tokens, 16 greedy tokens; every picked token's logits
+   against the plain path (plain attention, same weights, one teacher-forced
+   forward) and against the float32 plain path, which the kernel path must
+   be no further from than the bf16 plain path is; then the same at full
+   width, 4 layers, float32 with TF32 off, under a tight tolerance that a
+   bf16 attention is shown to fail; then a profiled prefill and four
+   profiled decode steps (device time by kernel group, idle share);
+8. rwkv6-7b, the same (K5 at prefill, the plain one-token step at decode);
+9. summary — one JSON line with every kernel, then the device line last.
 
-Launch counts are reset just before each path's run (phase 3's and each
-of phase 4's three) and read just after it; a kernel of a path that was not
-launched fails the run.  The summary reports every path's own counts,
+Launch counts are reset just before each path's run (phase 3's, each of
+phase 4's three, and each ``generate`` of phases 7-8) and read just after
+it; a kernel of a path that was not launched fails the run.  The summary reports every path's own counts,
 never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
 ``paths`` lists each run that launched it, with K1's launches in the
-blocked-fw run split by panel (row, column, outer).
+blocked-fw run split by panel (row, column, outer) and K4's split into
+the full-sequence (prefill) and decode sites.  K4's ``launches`` are from
+minitron-4b's full-depth generate, K5's from rwkv6-7b's.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import gc
 import json
 import pathlib
 import statistics
@@ -48,6 +69,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 FP32_INSTR_PER_S = 33.5e12   # 67 TFLOP/s fp32 peak (H100 SXM) as instructions
+FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores (H100 SXM)
+BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TIMING_RUNS = 30
 
@@ -266,6 +289,377 @@ def profile_steps(engine, topos, dems) -> dict:
             "top_kernels_ms": [[k[:70], ms] for k, ms in top]}
 
 
+# ---------------------------------------------------------------------------
+# the LM serving path (phases 6-8)
+# ---------------------------------------------------------------------------
+
+# K4's output is bf16 on the main path: kernel and plain version compute in
+# float32 and round to bf16, so they may differ by one bf16 ulp (<= |x|/128)
+K4_BF16_TOL = (1e-3, 8e-3)
+# K5: the same chunked float32 algebra summed in another order; exponents up
+# to +-80 inside a chunk scale the rounding of exp
+K5_TOL = (1e-4, 1e-4)
+# logits, relative L2 per generated position.  In bf16 (8 mantissa bits)
+# the kernel path and the plain path round at other places, and how far
+# that drifts through 32 layers depends on the model's conditioning: with
+# random weights, on an H100, both bf16 paths of rwkv6-7b land 0.6 from the
+# float32 plain path (1.8e-2 apart from each other for minitron-4b, 0.1-0.3
+# for rwkv6-7b), so no fixed tolerance holds both.  The bf16 check is therefore relative:
+# at every position the kernel path must be no further from the float32
+# plain path than the bf16 plain path is, within 10%.  float32 (no TF32) at
+# 4 layers is the tight check: the paths differ by the order of additions
+# only (~1e-6); an attention or WKV computed in bf16 gives ~1e-3 and must
+# fail it (checked below on a bf16-rounding plain path).
+SERVE_BF16_MARGIN = 1.1
+SERVE_FP32_TOL = 1e-4
+PROMPTS, PROMPT_LEN, GEN = 8, 1000, 16
+
+
+def flop_bound_ms(flops: float, rate: float, nbytes: float) -> tuple[float, str]:
+    """Least time: ``flops`` at ``rate`` or ``nbytes`` at the HBM rate."""
+    ops = flops / rate * 1e3
+    mem = nbytes / HBM_BYTES_PER_S * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def close(name: str, got: torch.Tensor, want: torch.Tensor,
+          tol: tuple[float, float]) -> float:
+    """Max abs error; fails unless |got - want| <= atol + rtol |want|."""
+    torch.cuda.synchronize()
+    atol, rtol = tol
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    if not bool(torch.isfinite(g).all()) or bool(
+            (err > atol + rtol * w.abs()).any()):
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                         f"version (max abs diff {float(err.max())}, atol "
+                         f"{atol}, rtol {rtol})")
+    return float(err.max())
+
+
+def sdpa_call(q, k, v, lk_valid):
+    """One ``scaled_dot_product_attention`` call on K4's inputs in torch's
+    [B, H, L, D] layout (transposed outside the timed call)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    lq, lk = q.shape[1], k.shape[1]
+    if lk_valid == lk and lq == lk:
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+    kpos = torch.arange(lk, device=q.device)
+    qpos = torch.arange(lq, device=q.device) + (lk_valid - lq)
+    mask = (kpos[None, :] < lk_valid) & (kpos[None, :] <= qpos[:, None])
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    out = {}
+    b, hq, hkv, d = 8, 24, 8, 128
+    for key, label, lq, lk, valid in (
+            ("prefill", "prefill [8,1000,24/8,128] bf16 causal", 1000, 1000,
+             1000),
+            ("decode", "decode [8,1,24/8,128] bf16, cache 1016, lk_valid 1001",
+             1, 1016, 1001),
+            ("aligned", "aligned [8,1024,24/8,128] bf16 causal", 1024, 1024,
+             1024)):
+        q = randn(b, lq, hq, d, dtype=torch.bfloat16)
+        k = randn(b, lk, hkv, d, dtype=torch.bfloat16)
+        v = randn(b, lk, hkv, d, dtype=torch.bfloat16)
+        got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid)
+        want = kfa.flash_attention_plain(q, k, v, causal=True,
+                                         lk_valid=valid)
+        err = close(f"K4 {label}", got, want, K4_BF16_TOL)
+        # (query, key) pairs this input needs: causal, aligned to the end
+        pairs = sum(min(valid, i + valid - lq + 1) for i in range(lq))
+        flops = 4.0 * b * hq * d * pairs
+        nbytes = 2.0 * (2 * b * lq * hq * d + 2 * b * valid * hkv * d)
+        bnd, kind = flop_bound_ms(flops, BF16_FLOP_PER_S, nbytes)
+        row = {"kernel": "flash_attention", "shape": label,
+               "ms": time_ms(lambda: kfa.flash_attention(
+                   q, k, v, causal=True, lk_valid=valid)),
+               "plain_ms": time_ms(lambda: kfa.flash_attention_plain(
+                   q, k, v, causal=True, lk_valid=valid)),
+               "library_ms": time_ms(sdpa_call(q, k, v, valid)),
+               "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
+               "tolerance": K4_BF16_TOL}
+        log(json.dumps(row))
+        out[f"flash_attention/{key}"] = row
+        del q, k, v, got, want
+
+    bh, n = 512, 64
+    for key, t, with_s0 in (("T1000+s0", 1000, True), ("T1000", 1000, False),
+                            ("T1024", 1024, False), ("T1024+s0", 1024, True)):
+        r, k, v = (randn(bh, t, n) for _ in range(3))
+        log_w = -torch.clamp(torch.exp(randn(bh, t, n)), 1e-6, 2.5)
+        u = randn(bh, n) * 0.5
+        s0 = randn(bh, n, n) * 0.3 if with_s0 else None
+        o, s = kwkv.wkv_chunked(r, k, v, log_w, u, s0)
+        want_o, want_s = kwkv.wkv_chunked_plain(r, k, v, log_w, u, s0)
+        err = max(close(f"K5 o {key}", o, want_o, K5_TOL),
+                  close(f"K5 s_final {key}", s, want_s, K5_TOL))
+        c = kwkv.CHUNK
+        # the chunked algebra on T steps: intra-chunk A and A v, the state
+        # read and update, the bonus term and decay bookkeeping
+        flops = bh * (t / c) * (2 * c * (c - 1) * n + 4 * c * n * n
+                                + n * n + 10 * c * n)
+        nbytes = 4.0 * (5 * bh * t * n + bh * n + bh * n * n
+                        * (2 if with_s0 else 1))
+        bnd, kind = flop_bound_ms(flops, FP32_FLOP_PER_S, nbytes)
+        row = {"kernel": "wkv_chunked",
+               "shape": f"[{bh},{t},{n}] f32" + (" + s0" if with_s0 else ""),
+               "ms": time_ms(lambda: kwkv.wkv_chunked(r, k, v, log_w, u, s0)),
+               "plain_ms": time_ms(lambda: kwkv.wkv_chunked_plain(
+                   r, k, v, log_w, u, s0)),
+               "library_ms": None,
+               "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
+               "tolerance": K5_TOL}
+        log(json.dumps(row))
+        out[f"wkv_chunked/{key}"] = row
+        del r, k, v, log_w, u, s0, o, s, want_o, want_s
+    return out
+
+
+@contextlib.contextmanager
+def plain_path(kops, kfa, kwkv, bf16_inputs: bool = False):
+    """Run the model with K4's and K5's plain versions in place of the
+    kernels (``ops`` is where the model looks them up).  With
+    ``bf16_inputs`` the plain versions see their inputs rounded to bf16:
+    what an attention or WKV that computed in bf16 would give."""
+    def rnd(x):
+        return x.to(torch.bfloat16).to(x.dtype) if bf16_inputs else x
+
+    def attention(q, k, v, *, causal=True, scale=None, lk_valid=None,
+                  site=None):
+        return kfa.flash_attention_plain(rnd(q), rnd(k), rnd(v),
+                                         causal=causal, scale=scale,
+                                         lk_valid=lk_valid)
+
+    def wkv(r, k, v, log_w, u, s0=None):
+        return kwkv.wkv_chunked_plain(rnd(r), rnd(k), rnd(v), rnd(log_w), u,
+                                      s0)
+
+    saved = kops.flash_attention, kops.wkv_chunked
+    kops.flash_attention, kops.wkv_chunked = attention, wkv
+    try:
+        yield
+    finally:
+        kops.flash_attention, kops.wkv_chunked = saved
+
+
+def teacher_forced(model, params, toks: np.ndarray) -> torch.Tensor:
+    """Logits [B, GEN, Vp] of one full forward over prompt + generated
+    tokens, at the positions whose logits picked each generated token."""
+    from repro_torch.models import layers
+    batch = {"tokens": torch.as_tensor(toks[:, :PROMPT_LEN + GEN - 1],
+                                       device="cuda")}
+    h, _, _ = model.forward(params, batch, unembed=False)
+    return layers.dense(h[:, PROMPT_LEN - 1:], params["head"])
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> list[float]:
+    """||got - want|| / ||want|| at each generated position."""
+    g, w = got.float(), want.float()
+    num = torch.linalg.vector_norm(g - w, dim=(0, 2))
+    den = torch.linalg.vector_norm(w, dim=(0, 2))
+    return (num / den).tolist()
+
+
+def kernel_groups(prof, kernels: dict[str, str]) -> dict:
+    """Device time of a profiled window by group: our kernels by name,
+    GEMMs, everything else."""
+    from torch.autograd import DeviceType
+    groups: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        name = e.name
+        group = next((g for g, pat in kernels.items() if pat in name), None)
+        if group is None:
+            low = name.lower()
+            group = ("gemm" if any(w in low for w in (
+                "gemm", "cutlass", "xmma", "nvjet", "sm90")) else "other")
+        groups[group] = groups.get(group, 0.0) + e.time_range.elapsed_us() / 1e3
+    return groups
+
+
+def profile_serving(model, params, prompts, kernels) -> dict:
+    """Two profiled windows at full depth: one prefill of the whole prompt
+    batch, and four decode steps after it."""
+    from torch.profiler import ProfilerActivity, profile
+    toks = torch.as_tensor(prompts, device="cuda", dtype=torch.long)
+    res = {}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, {"tokens": toks},
+                                      PROMPT_LEN + 8)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = kernel_groups(prof, kernels)
+    busy = sum(groups.values())
+    res["prefill"] = {"wall_ms": wall, "kernel_ms": busy,
+                      "device_idle_share": 1 - busy / wall,
+                      "kernel_ms_by_group": groups}
+    tok = logits.argmax(-1)[:, None]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(4):
+            logits, cache = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / 4
+    groups = {g: ms / 4 for g, ms in kernel_groups(prof, kernels).items()}
+    busy = sum(groups.values())
+    res["decode_step"] = {"wall_ms": wall, "kernel_ms": busy,
+                          "device_idle_share": 1 - busy / wall,
+                          "kernel_ms_by_group": groups}
+    return res
+
+
+def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
+    """Serve ``arch`` at full width and depth through ``generate`` and
+    check its logits against the plain path; then full width at 4 layers
+    in float32; then a profile.  Frees the model before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+
+    cfg = get_config(arch)
+    nl = cfg.num_layers
+    model = model_lib.get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (PROMPTS, PROMPT_LEN)).astype(np.int32)
+    serve.generate(cfg, params, prompts[:, :64], 2)   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    rec: dict = {}
+    toks = serve.generate(cfg, params, prompts, GEN, record=rec)
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+    steps = 1 + rec["decode_steps"]
+    name = f"{arch} generate 8x{PROMPT_LEN}+{GEN}, {nl} layers, {cfg.dtype}"
+    runs.append({"path": name, "launches": counts, "sites": sites,
+                 "steps": steps})
+    if counts[kernel] == 0:
+        raise SystemExit(f"chip_smoke: {name} did not launch {kernel}")
+    if kernel == "flash_attention" and sites != {
+            "flash_attention/full": nl,
+            "flash_attention/decode": nl * rec["decode_steps"]}:
+        raise SystemExit(f"chip_smoke: {name}: K4 not in every layer of the "
+                         f"prefill and of every decode step: {sites}")
+    if kernel == "wkv_chunked" and counts[kernel] != nl:
+        raise SystemExit(f"chip_smoke: {name}: K5 not in every layer of the "
+                         f"prefill: {counts}")
+    got = torch.stack(rec["logits"], dim=1)
+    vp = cfg.padded_vocab
+    if got.shape != (PROMPTS, GEN, vp) or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"chip_smoke: {name}: logits {tuple(got.shape)} or "
+                         "not finite")
+    if toks.shape != (PROMPTS, PROMPT_LEN + GEN) or toks.max() >= \
+            cfg.vocab_size:
+        raise SystemExit(f"chip_smoke: {name}: bad tokens")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with plain_path(kops, kfa, kwkv):
+        _build.reset_launches()
+        plain = teacher_forced(model, params, toks)
+        if any(_build.LAUNCHES.values()):
+            raise SystemExit("chip_smoke: the plain path launched a kernel")
+    rel = rel_l2(got, plain)
+    # the float32 plain path at full depth: how far each bf16 path is from it
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with plain_path(kops, kfa, kwkv):
+        exact = teacher_forced(model_lib.get_model(cfg32), params, toks)
+    rel_kernel, rel_plain = rel_l2(got, exact), rel_l2(plain, exact)
+    res = {"arch": arch, "layers": nl, "dtype": cfg.dtype,
+           "params_b": sum(x.numel() for x in _leaves(params)) / 1e9,
+           "init_s": init_s, "prefill_s": rec["prefill_s"],
+           "decode_s": rec["decode_s"], "decode_steps": rec["decode_steps"],
+           "prefill_tok_per_s": PROMPTS * PROMPT_LEN / rec["prefill_s"],
+           "decode_tok_per_s": PROMPTS * rec["decode_steps"] / rec["decode_s"],
+           "peak_gb": peak_gb, "launches": counts, "sites": sites,
+           "rel_l2_vs_plain": rel, "rel_l2_kernel_vs_fp32": rel_kernel,
+           "rel_l2_plain_vs_fp32": rel_plain, "margin": SERVE_BF16_MARGIN}
+    del plain, exact
+    log(json.dumps(res))
+    if not all(k <= SERVE_BF16_MARGIN * p for k, p in zip(rel_kernel,
+                                                           rel_plain)):
+        raise SystemExit(f"chip_smoke: {name}: the kernel path is further "
+                         "from the float32 plain path than the bf16 plain "
+                         f"path: {rel_kernel} vs {rel_plain}")
+
+    # full width, 4 layers, float32 (TF32 off): a tight check
+    cfg4 = dataclasses.replace(cfg, num_layers=min(4, nl), dtype="float32")
+    params4 = dict(params, blocks={k: w[:cfg4.num_layers] for k, w in
+                                   params["blocks"].items()})
+    model4 = model_lib.get_model(cfg4)
+    _build.reset_launches()
+    rec4: dict = {}
+    toks4 = serve.generate(cfg4, params4, prompts, GEN, record=rec4)
+    name4 = (f"{arch} generate 8x{PROMPT_LEN}+{GEN}, {cfg4.num_layers} "
+             "layers, float32")
+    runs.append({"path": name4, "launches": dict(_build.LAUNCHES),
+                 "sites": dict(_build.SITE_LAUNCHES),
+                 "steps": 1 + rec4["decode_steps"]})
+    if _build.LAUNCHES[kernel] == 0:
+        raise SystemExit(f"chip_smoke: {name4} did not launch {kernel}")
+    got4 = torch.stack(rec4["logits"], dim=1)
+    with plain_path(kops, kfa, kwkv):
+        plain4 = teacher_forced(model4, params4, toks4)
+    with plain_path(kops, kfa, kwkv, bf16_inputs=True):
+        bf16_4 = teacher_forced(model4, params4, toks4)
+    rel4, rel_bf16 = rel_l2(got4, plain4), rel_l2(bf16_4, plain4)
+    res4 = {"arch": arch, "layers": cfg4.num_layers, "dtype": "float32",
+            "rel_l2_vs_plain": rel4, "tolerance": SERVE_FP32_TOL,
+            "rel_l2_bf16_rounding_plain_vs_plain": max(rel_bf16),
+            "launches": dict(_build.LAUNCHES),
+            "sites": dict(_build.SITE_LAUNCHES)}
+    log(json.dumps(res4))
+    if not max(rel4) <= SERVE_FP32_TOL:
+        raise SystemExit(f"chip_smoke: {name4}: logits disagree with the "
+                         f"plain path: rel L2 {max(rel4)}")
+    if not max(rel_bf16) > SERVE_FP32_TOL:
+        raise SystemExit(f"chip_smoke: {name4}: the float32 tolerance does "
+                         "not separate a bf16 computation")
+    del got4, plain4, bf16_4, params4, model4
+
+    pats = {"K4 flash_attention": "flash_attention_kernel",
+            "K5 wkv_chunked": "wkv_chunked_kernel"}
+    prof = profile_serving(model, params, prompts, pats)
+    log(json.dumps({"profile": f"{arch} full depth", **prof}))
+    res["profile"] = prof
+    del params, model, got, rec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
@@ -344,7 +738,28 @@ def main() -> None:
     if not np.all(np.abs(card_ub / cpu_ub - 1) <= 1e-3):
         raise SystemExit("chip_smoke: card and CPU dual bounds disagree")
 
-    # phase 6: summary
+    # phase 6: the LM kernels against their plain versions
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import wkv as kwkv
+    t0 = time.perf_counter()
+    lm_timed = phase_lm_kernels(kfa, kwkv)
+    log(f"phase 6 (LM kernels) wall {time.perf_counter() - t0:.1f} s")
+
+    # phases 7-8: the LM serving path at full width and depth; float32
+    # products in full float32 (the 4-layer check and the float32 plain path)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    served = {}
+    for arch, kernel, seed in (("minitron-4b", "flash_attention", 0),
+                               ("rwkv6-7b", "wkv_chunked", 1)):
+        t0 = time.perf_counter()
+        served[arch] = phase_serve(arch, kernel, runs, seed)
+        log(f"{card}: {arch} prefill "
+            f"{served[arch]['prefill_tok_per_s']:.1f} tok/s, decode "
+            f"{served[arch]['decode_tok_per_s']:.1f} tok/s "
+            f"(phase wall {time.perf_counter() - t0:.1f} s)")
+
+    # phase 9: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "
@@ -355,6 +770,16 @@ def main() -> None:
                             "src/repro/kernels/ell.py:103 "
                             "_relax_round_kernel"),
     }
+    meta.update({
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:114 "
+                            "flash_attention_pallas (_flash_kernel :32)"),
+        "wkv_chunked": ("src/repro_torch/csrc/wkv.cu",
+                        "src/repro/kernels/wkv.py:96 wkv_chunked_pallas "
+                        "(_wkv_kernel :39)"),
+    })
+    timed["flash_attention"] = lm_timed["flash_attention/prefill"]
+    timed["wkv_chunked"] = lm_timed["wkv_chunked/T1000"]
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timed[name]
@@ -363,23 +788,36 @@ def main() -> None:
             n = run["launches"][name]
             if n == 0:
                 continue
-            entry = {"path": run["path"], "launches": n,
-                     "steps": run["steps"],
-                     "launches_per_step": n / run["steps"]}
+            run_entry = {"path": run["path"], "launches": n,
+                         "steps": run["steps"],
+                         "launches_per_step": n / run["steps"]}
             by_site = {k.split("/", 1)[1]: v for k, v in run["sites"].items()
                        if k.startswith(name + "/")}
             if by_site:
-                entry["by_site"] = by_site
-            paths.append(entry)
-        kernels.append({
+                run_entry["by_site"] = by_site
+            paths.append(run_entry)
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": paths[0]["launches"],
             "launches_per_step": paths[0]["launches_per_step"],
             "launches_path": paths[0]["path"], "paths": paths,
-            "max_abs_err": t["max_abs_err"], "exact": t["exact"],
+            "max_abs_err": t["max_abs_err"], "exact": t.get("exact", False),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_kind"],
-            "library_ms": None, "card": card})
+            "library_ms": t.get("library_ms"), "shape": t.get("shape"),
+            "card": card}
+        if name in ("flash_attention", "wkv_chunked"):
+            entry["tolerance"] = t["tolerance"]
+            entry["shapes"] = {k.split("/", 1)[1]: {
+                f: v for f, v in row.items() if f in (
+                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_kind", "max_abs_err")}
+                for k, row in lm_timed.items() if k.startswith(name + "/")}
+        kernels.append(entry)
+    log(json.dumps({"serving": {
+        arch: {k: r[k] for k in ("prefill_tok_per_s", "decode_tok_per_s",
+                                 "prefill_s", "decode_s", "peak_gb")}
+        for arch, r in served.items()}, "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -33,22 +33,11 @@ from repro_torch.core import apsp as apsp_mod
 from repro_torch.core.apsp import _INF, normalize_backend
 from repro_torch.core.graphs import (Topology, as_cap, connected_components,
                                      degree_stats)
+from repro_torch.device import resolve_device
 
 __all__ = ["DualResult", "DualBatchResult", "solve_dual",
            "solve_dual_batch", "aspl", "drop_disconnected",
            "resolve_backend_density", "resolve_device", "_INF"]
-
-
-def resolve_device(device: str | torch.device = "cuda") -> torch.device:
-    """The device an entry point runs on.  A CUDA device without a card
-    raises: the port never quietly falls back to the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the card by "
-            "default — pass device='cpu' to run the plain versions on the "
-            "CPU")
-    return dev
 
 
 @dataclasses.dataclass(frozen=True)

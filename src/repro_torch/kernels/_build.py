@@ -11,8 +11,9 @@ fallback.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made, and
 ``SITE_LAUNCHES`` splits them by the caller that names itself (the blocked
-Floyd-Warshall panels); a run resets both with ``reset_launches`` and reads
-them afterwards to show which kernels the path went through.
+Floyd-Warshall panels, the full-sequence and the decode attention); a run
+resets both with ``reset_launches`` and reads them afterwards to show which
+kernels the path went through.
 """
 from __future__ import annotations
 
@@ -41,16 +42,19 @@ _FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signatures of the kernel entries (argument types, all return int)
 _SIGNATURES = {
     "minplus_acc": (_P, _P, _P, _P, _I, _I, _I, _I,
                     _L, _L, _L, _L, _L, _L, _L, _L, _P),
     "fw_pivot": (_P, _I, _I, _L, _L, _P),
     "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
+                        *(_L,) * 12, _P),
+    "wkv_chunked": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
 }
 
-LAUNCHES: dict[str, int] = {"minplus_acc": 0, "fw_pivot": 0,
-                            "ell_relax_round": 0}
+LAUNCHES: dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
 SITE_LAUNCHES: collections.Counter[str] = collections.Counter()
 _BUILD_SECONDS: list[float] = []
 

@@ -1,5 +1,6 @@
-"""Differentiable public wrapper around the tropical product (the port of
-``repro.kernels.ops.minplus_matmul``).
+"""Public wrappers around the kernels (the port of ``repro.kernels.ops``).
+
+``minplus_matmul`` is the differentiable tropical product:
 
 * On CPU tensors it follows the reference: operands under one block go to
   the broadcast reference, larger ones are padded with ``INF`` to block
@@ -8,14 +9,23 @@
   edge itself, so nothing is padded and the path never leaves the kernel.
 * The backward is the reference's ``_minplus_bwd`` in plain torch: the
   argmin mask with ties split evenly under a relative tolerance.
+
+``flash_attention`` (K4) and ``wkv_chunked`` (K5) send a CPU tensor to the
+plain version and a CUDA tensor to the kernel, or raise.  Unlike the
+reference's wrapper, a CUDA tensor never goes to a reference function at
+``Lq == 1`` or ``Lk`` under one tile: K4 masks its ragged edges itself, as
+K5 does a ragged T, so neither pads.  The model's layers call these two
+through this module.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import minplus as _minplus
+from repro_torch.kernels import wkv as _wkv
 
-__all__ = ["minplus_matmul", "INF"]
+__all__ = ["minplus_matmul", "flash_attention", "wkv_chunked", "INF"]
 
 INF = 1.0e38   # "infinity" edge weight that survives one add without overflow
 
@@ -72,3 +82,23 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
     Differentiable: the VJP routes cotangents through the argmin terms
     (ties split evenly), the shortest-path-DAG subgradient."""
     return _MinplusMatmul.apply(a, b, block)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    lk_valid: int | None = None,
+                    site: str | None = None) -> torch.Tensor:
+    """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], causal
+    diagonal aligned to the end of the ``lk_valid`` valid keys (K4 on the
+    card; see ``repro_torch.kernels.flash_attention``)."""
+    return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
+                                  lk_valid=lk_valid, site=site)
+
+
+def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_w: torch.Tensor, u: torch.Tensor,
+                s0: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked WKV-6 over [BH, T, n] from state ``s0``: ``(o, s_final)``
+    (K5 on the card; see ``repro_torch.kernels.wkv``)."""
+    return _wkv.wkv_chunked(r, k, v, log_w, u, s0)

@@ -1,0 +1,254 @@
+"""RWKV-6 "Finch": attention-free time mixing with data-dependent decay (the
+port of ``repro.models.rwkv6``).
+
+Time mixing per head (head_dim n): state S in R^{n x n},
+
+    S_t = diag(w_t) S_{t-1} + k_t v_t^T
+    o_t = (S_{t-1} + diag(u) k_t v_t^T)^T r_t
+
+with w_t = exp(-exp(d_t)) a data-dependent per-channel decay, d_t from a
+low-rank projection of the token-shifted input.  Every decay exponent is
+clamped to 2.5 a step, so no exp() of a 32-token chunk leaves float32.
+
+Prefill runs the chunked WKV through ``repro_torch.kernels.ops.wkv_chunked``
+(K5 on the card, its plain chunked version on the CPU) from a zero state and
+keeps the final state for the cache.  Decode is the one-token recurrence
+``_wkv_step`` in plain torch, as in the reference, which has no kernel for
+it.  The reference's ``scan`` over layers is a Python loop and its ``shard``
+hooks are dropped (one device).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.models import layers, transformer as tfm
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
+           "LOG_W_CLAMP"]
+
+LOG_W_CLAMP = 2.5     # max |log w| per step (see module docstring)
+LORA_R = 64
+
+
+def init_params(cfg: ModelConfig, generator: int | torch.Generator,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters from an explicit generator (or a seed), in
+    ``cfg.param_dtype``, on ``device`` (the reference's layout: per-layer
+    tensors stacked on a leading L dim)."""
+    dev = resolve_device(device)
+    gen = tfm.generator_for(generator, dev)
+    d, f, nl = cfg.d_model, cfg.d_ff, cfg.num_layers
+    vp, pdt = cfg.padded_vocab, tfm._pdt(cfg)
+
+    def mat(*shape, fan_in):
+        return tfm.normal(gen, shape, fan_in, pdt, dev)
+
+    def full(shape, value):
+        return torch.full(shape, value, dtype=pdt, device=dev)
+
+    blocks = {
+        "ln1": full((nl, d), 1.0),
+        "ln2": full((nl, d), 1.0),
+        # token-shift lerp coefficients (static): r, k, v, g, w | k2, r2
+        "mu": full((nl, 7, d), 0.5),
+        "w_r": mat(nl, d, d, fan_in=d),
+        "w_k": mat(nl, d, d, fan_in=d),
+        "w_v": mat(nl, d, d, fan_in=d),
+        "w_g": mat(nl, d, d, fan_in=d),
+        "w_o": mat(nl, d, d, fan_in=d),
+        "decay_base": full((nl, d), -0.6),     # exp(-exp(-0.6)) ~ 0.58
+        "decay_a": mat(nl, d, LORA_R, fan_in=d),
+        "decay_b": full((nl, LORA_R, d), 0.0),
+        "bonus": full((nl, d), 0.0),           # u
+        "ln_x": full((nl, d), 1.0),            # per-head norm gain
+        # channel mixing
+        "wk2": mat(nl, d, f, fan_in=d),
+        "wv2": mat(nl, f, d, fan_in=f),
+        "wr2": mat(nl, d, d, fan_in=d),
+    }
+    return {
+        "emb": mat(vp, d, fan_in=1.0).mul_(0.02),
+        "head": mat(d, vp, fan_in=d),
+        "final_norm": full((d,), 1.0),
+        "blocks": blocks,
+    }
+
+
+# --------------------------------------------------------------------------
+# pieces
+# --------------------------------------------------------------------------
+
+def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
+    """x_{t-1} along the seq axis; ``prev`` [B, D] seeds t=0 (decode)."""
+    if prev is None:
+        return F.pad(x, (0, 0, 1, 0))[:, :-1]
+    return torch.cat([prev[:, None].to(x.dtype), x[:, :-1]], dim=1)
+
+
+def _lerp(x, x_prev, mu):
+    return x + (x_prev - x) * mu.to(x.dtype)
+
+
+def _rkvgw(cfg: ModelConfig, x, x_prev, lw):
+    """Projections for time mixing.  Returns r,k,v [B,T,H,n] f32,
+    g [B,T,D], log_w [B,T,H,n] f32 (negative)."""
+    h, n = cfg.num_rwkv_heads, cfg.rwkv_head_dim
+    b, t, _ = x.shape
+    mu = lw["mu"]
+    xr, xk, xv, xg, xw = (_lerp(x, x_prev, mu[i]) for i in range(5))
+    r = layers.dense(xr, lw["w_r"]).float().reshape(b, t, h, n)
+    k = layers.dense(xk, lw["w_k"]).float().reshape(b, t, h, n)
+    v = layers.dense(xv, lw["w_v"]).float().reshape(b, t, h, n)
+    g = F.silu(layers.dense(xg, lw["w_g"]))
+    dlow = torch.tanh(layers.dense(xw, lw["decay_a"]).float())
+    dd = lw["decay_base"].float() + dlow @ lw["decay_b"].float()
+    log_w = -torch.clamp(torch.exp(dd), 1e-6, LOG_W_CLAMP).reshape(b, t, h, n)
+    return r, k, v, g, log_w
+
+
+def _wkv_chunked(r, k, v, log_w, u, s0):
+    """Chunked WKV over the [B, T, H, n] layout: r,k,v,log_w f32; u [H, n];
+    s0 [B, H, n, n] or None (zero).  Returns (o [B,T,H,n], s_final).  The
+    heads are folded into the kernel's lanes ([B*H, T, n])."""
+    b, t, h, n = r.shape
+    lanes = [x.permute(0, 2, 1, 3).reshape(b * h, t, n)
+             for x in (r, k, v, log_w)]
+    uu = u.expand(b, h, n).reshape(b * h, n)
+    s_in = None if s0 is None else s0.reshape(b * h, n, n)
+    o, s = ops.wkv_chunked(*lanes, uu, s_in)
+    return o.reshape(b, h, t, n).permute(0, 2, 1, 3), s.reshape(b, h, n, n)
+
+
+def _wkv_step(r, k, v, log_w, u, s):
+    """One-token WKV.  r,k,v,log_w [B,1,H,n]; s [B,H,n,n]."""
+    rr, kk, vv, ww = (x[:, 0] for x in (r, k, v, log_w))   # [B,H,n]
+    o = torch.einsum("bhn,bhnm->bhm", rr, s) + \
+        torch.einsum("bhn,bhn,bhm->bhm", rr * u, kk, vv)
+    s_new = s * torch.exp(ww)[..., None] + \
+        torch.einsum("bhn,bhm->bhnm", kk, vv)
+    return o[:, None], s_new
+
+
+def _head_norm(cfg: ModelConfig, o: torch.Tensor,
+               gain: torch.Tensor) -> torch.Tensor:
+    """Per-head layernorm of the WKV output (RWKV's GroupNorm); the
+    variance is the population one, as ``jnp.var``."""
+    mean = o.mean(-1, keepdim=True)
+    var = o.var(-1, keepdim=True, correction=0)
+    o = (o - mean) * torch.rsqrt(var + 1e-5)
+    b, t = o.shape[:2]
+    return o.reshape(b, t, cfg.d_model) * gain.to(o.dtype)
+
+
+def _time_mix(cfg, x, lw, prev, s0):
+    u = lw["bonus"].float().reshape(cfg.num_rwkv_heads, cfg.rwkv_head_dim)
+    x_prev = _shift(x, prev)
+    r, k, v, g, log_w = _rkvgw(cfg, x, x_prev, lw)
+    if x.shape[1] == 1:
+        o, s = _wkv_step(r, k, v, log_w, u, s0)
+    else:
+        # ops.wkv_chunked takes a ragged T as the reference pads it here
+        # (k = v = 0, log_w = 0 on the steps past T)
+        o, s = _wkv_chunked(r, k, v, log_w, u, s0)
+    o = _head_norm(cfg, o.to(x.dtype), lw["ln_x"]) * g
+    return layers.dense(o, lw["w_o"]), x[:, -1], s
+
+
+def _channel_mix(cfg, x, lw, prev):
+    x_prev = _shift(x, prev)
+    xk = _lerp(x, x_prev, lw["mu"][5])
+    xr = _lerp(x, x_prev, lw["mu"][6])
+    kk = torch.square(F.relu(layers.dense(xk, lw["wk2"])))
+    out = torch.sigmoid(layers.dense(xr, lw["wr2"])) * \
+        layers.dense(kk, lw["wv2"])
+    return out, x[:, -1]
+
+
+def _block(cfg, x, lw, cache):
+    """One layer; ``cache`` None starts from a zero state (prefill, run as
+    ``s0 = None``, which K5 reads as zero)."""
+    s0 = cache["s"] if cache else None
+    if s0 is None and x.shape[1] == 1:
+        s0 = torch.zeros((x.shape[0], cfg.num_rwkv_heads, cfg.rwkv_head_dim,
+                          cfg.rwkv_head_dim), dtype=torch.float32,
+                         device=x.device)
+    prev1 = cache["shift1"] if cache else None
+    prev2 = cache["shift2"] if cache else None
+    h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
+    a, last1, s = _time_mix(cfg, h, lw, prev1, s0)
+    x = x + a
+    h = layers.rms_norm(x, lw["ln2"], cfg.norm_eps)
+    c, last2 = _channel_mix(cfg, h, lw, prev2)
+    x = x + c
+    return x, {"s": s, "shift1": last1, "shift2": last2}
+
+
+# --------------------------------------------------------------------------
+# public API
+# --------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            collect_cache: bool = False, unembed: bool = True):
+    """Returns (logits [B, S, Vp], aux_loss (0), per-layer caches stacked on
+    L | None).  With unembed=False, returns the final-norm hidden states."""
+    x = tfm._embed(cfg, params, batch)
+    caches = []
+    for i in range(cfg.num_layers):
+        x, c = _block(cfg, x, tfm.layer(params, i), None)
+        if collect_cache:
+            caches.append(c)
+    stacked = ({key: torch.stack([c[key] for c in caches])
+                for key in ("s", "shift1", "shift2")}
+               if collect_cache else None)
+    if not unembed:
+        return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), \
+            tfm._zero(x), stacked
+    return tfm._unembed(cfg, params, x), tfm._zero(x), stacked
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    del max_len              # O(1) state
+    dev = resolve_device(device)
+    h, n, nl, d = (cfg.num_rwkv_heads, cfg.rwkv_head_dim, cfg.num_layers,
+                   cfg.d_model)
+    dt = tfm._dt(cfg)
+    return {
+        "s": torch.zeros((nl, batch_size, h, n, n), dtype=torch.float32,
+                         device=dev),
+        "shift1": torch.zeros((nl, batch_size, d), dtype=dt, device=dev),
+        "shift2": torch.zeros((nl, batch_size, d), dtype=dt, device=dev),
+        "pos": 0,
+    }
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+    """(logits of the last position [B, Vp], cache)."""
+    x = tfm._embed(cfg, params, batch)
+    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    for i in range(cfg.num_layers):
+        x, c = _block(cfg, x, tfm.layer(params, i), None)
+        for key in ("s", "shift1", "shift2"):
+            cache[key][i] = c[key]        # in place into the preallocated cache
+    cache["pos"] = x.shape[1]
+    # unembed the last position only (see transformer.prefill)
+    return tfm._unembed(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """tokens [B, 1] -> (logits [B, Vp], cache).  The returned cache holds
+    the same state buffers, updated in place, and ``pos + 1``."""
+    x = tfm._embed(cfg, params, {"tokens": tokens})
+    for i in range(cfg.num_layers):
+        x, c = _block(cfg, x, tfm.layer(params, i),
+                      {key: cache[key][i] for key in ("s", "shift1",
+                                                       "shift2")})
+        for key in ("s", "shift1", "shift2"):
+            cache[key][i] = c[key]
+    logits = tfm._unembed(cfg, params, x)
+    return logits[:, -1], dict(cache, pos=int(cache["pos"]) + 1)

@@ -1,0 +1,267 @@
+"""Dense decoder-only transformer (the port of ``repro.models.transformer``
+for the dense family).
+
+The parameters keep the reference's layout: one dict whose per-layer
+tensors are stacked on a leading L dim, attention weights flat
+([D, H*Dh]).  The reference's ``scan`` over layers becomes a Python loop
+over that dim, and its ``shard`` hooks are dropped (one device).  Attention
+runs K4 (``repro_torch.kernels.ops.flash_attention``) at prefill and at
+every decode step; the MoE feed-forward and the patch/frame frontends come
+with their slices (ROADMAP A12).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache"]
+
+
+def _dt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _pdt(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice of the port does not run yet."""
+    if cfg.num_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE feed-forward lands with the moe family's "
+            "slice (ROADMAP A12)")
+    if cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.frontend!r} frontend lands with the "
+            "vlm/audio slice (ROADMAP A12)")
+
+
+def generator_for(seed_or_gen: int | torch.Generator,
+                  device: torch.device) -> torch.Generator:
+    """An explicit generator on ``device``: a seed makes a new one."""
+    if isinstance(seed_or_gen, torch.Generator):
+        if seed_or_gen.device.type != device.type:
+            raise ValueError(f"generator on {seed_or_gen.device}, parameters "
+                             f"on {device}")
+        return seed_or_gen
+    return torch.Generator(device=device).manual_seed(int(seed_or_gen))
+
+
+def normal(gen: torch.Generator, shape: tuple[int, ...], fan_in: float,
+           dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """N(0, 1 / fan_in) draws (scaled in place: the embedding and head of
+    the large configs are gigabytes)."""
+    x = torch.randn(shape, generator=gen, dtype=dtype, device=device)
+    return x.div_(math.sqrt(fan_in))
+
+
+# --------------------------------------------------------------------------
+# init
+# --------------------------------------------------------------------------
+
+def init_params(cfg: ModelConfig, generator: int | torch.Generator,
+                device: str | torch.device = "cuda") -> dict:
+    """Random parameters from an explicit generator (or a seed), in
+    ``cfg.param_dtype``, on ``device``.  The draws differ from the
+    reference's ``jax.random``; ``model.load_reference_params`` carries the
+    reference's own parameters across."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = generator_for(generator, dev)
+    d, hd = cfg.d_model, cfg.head_dim_
+    hq, hkv, f, nl = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff, cfg.num_layers
+    vp, pdt = cfg.padded_vocab, _pdt(cfg)
+
+    def mat(*shape, fan_in):
+        return normal(gen, shape, fan_in, pdt, dev)
+
+    def norm(*shape):
+        return torch.ones(shape, dtype=pdt, device=dev)
+
+    blocks = {
+        "ln1": norm(nl, d),
+        "ln2": norm(nl, d),
+        "wq": mat(nl, d, hq * hd, fan_in=d),
+        "wk": mat(nl, d, hkv * hd, fan_in=d),
+        "wv": mat(nl, d, hkv * hd, fan_in=d),
+        "wo": mat(nl, hq * hd, d, fan_in=hq * hd),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            blocks[name] = torch.zeros((nl, width * hd), dtype=pdt,
+                                       device=dev)
+    blocks["wg"] = mat(nl, d, f, fan_in=d)
+    blocks["wu"] = mat(nl, d, f, fan_in=d)
+    blocks["wd"] = mat(nl, f, d, fan_in=f)
+    return {
+        "emb": mat(vp, d, fan_in=1.0).mul_(0.02),
+        "head": mat(d, vp, fan_in=d),
+        "final_norm": norm(d),
+        "blocks": blocks,
+    }
+
+
+def layer(params: dict, i: int) -> dict:
+    """Layer ``i``'s weights: views into the stacked tensors."""
+    return {k: w[i] for k, w in params["blocks"].items()}
+
+
+# --------------------------------------------------------------------------
+# shared block body
+# --------------------------------------------------------------------------
+
+def _attn_block(cfg: ModelConfig, x: torch.Tensor, lw: dict,
+                sin: torch.Tensor, cos: torch.Tensor, *,
+                kv_cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+                pos: int = 0) -> tuple[torch.Tensor, tuple]:
+    """Attention sub-block.  Full sequence when ``kv_cache`` is None
+    (returns the fresh k/v); decode when ``kv_cache = (k_all, v_all)``, a
+    layer's [B, max_len, Hkv, Dh] cache, which this writes at ``pos`` IN
+    PLACE (slice assignment: the cache is the largest tensor of a decode
+    step, and the reference's ``dynamic_update_slice`` is in place too)."""
+    hd, hq, hkv = cfg.head_dim_, cfg.num_heads, cfg.num_kv_heads
+    b, seq, _ = x.shape
+    h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
+    q = layers.dense(h, lw["wq"], lw.get("bq")).view(b, seq, hq, hd)
+    k = layers.dense(h, lw["wk"], lw.get("bk")).view(b, seq, hkv, hd)
+    v = layers.dense(h, lw["wv"], lw.get("bv")).view(b, seq, hkv, hd)
+    q, k = layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)
+
+    if kv_cache is None:
+        out = layers.attention(q, k, v, causal=True, window=cfg.local_window,
+                               site="full")
+        new_kv = (k, v)
+    else:
+        k_all, v_all = kv_cache
+        k_all[:, pos:pos + seq] = k.to(k_all.dtype)
+        v_all[:, pos:pos + seq] = v.to(v_all.dtype)
+        out = _attention_decode(q, k_all, v_all, kv_len=pos + seq,
+                                window=cfg.local_window)
+        new_kv = (k_all, v_all)
+    out = layers.dense(out.reshape(b, seq, hq * hd), lw["wo"])
+    return out, new_kv
+
+
+def _attention_decode(q, k, v, *, kv_len, window=0):
+    """Attention of the new position(s) over the first ``kv_len`` cache
+    positions: K4 with ``Lq = 1`` and ``lk_valid = pos + 1`` in a decode
+    step, the reference's softmax over the valid cache positions."""
+    return layers.attention(q, k, v, causal=True, kv_len=kv_len,
+                            window=window, site="decode")
+
+
+def _ffn_block(cfg: ModelConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
+    h = layers.rms_norm(x, lw["ln2"], cfg.norm_eps)
+    return layers.swiglu(h, lw["wg"], lw["wu"], lw["wd"])
+
+
+# --------------------------------------------------------------------------
+# embedding / unembedding
+# --------------------------------------------------------------------------
+
+def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
+    # gather the rows, then cast: the same values as casting the table
+    # first, without a compute-type copy of the whole table
+    tokens = batch["tokens"].to(params["emb"].device, torch.long)
+    return params["emb"][tokens].to(_dt(cfg))
+
+
+def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = layers.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return x @ params["head"].to(x.dtype)
+
+
+def _rope_for(cfg: ModelConfig, seq_len: int, device: torch.device,
+              offset: int = 0):
+    pos = offset + torch.arange(seq_len, device=device)
+    return layers.rope(pos, cfg.head_dim_, cfg.rope_theta)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# --------------------------------------------------------------------------
+# full-sequence forward (prefill; training comes with its slice)
+# --------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params: dict, batch: dict,
+            collect_kv: bool = False, unembed: bool = True):
+    """Returns (logits [B, S, Vp], aux_loss, (k, v) [L,B,S,Hkv,Dh] | None).
+    With unembed=False, returns the final-norm hidden states instead of
+    logits."""
+    x = _embed(cfg, params, batch)
+    sin, cos = _rope_for(cfg, x.shape[1], x.device)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lw = layer(params, i)
+        a, (k, v) = _attn_block(cfg, x, lw, sin, cos)
+        x = x + a
+        x = x + _ffn_block(cfg, x, lw)
+        if collect_kv:
+            ks.append(k)
+            vs.append(v)
+    kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
+    if not unembed:
+        return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), \
+            _zero(x), kvs
+    return _unembed(cfg, params, x), _zero(x), kvs
+
+
+# --------------------------------------------------------------------------
+# serving: prefill + decode
+# --------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
+               device: str | torch.device = "cuda") -> dict:
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch_size, max_len, cfg.num_kv_heads,
+             cfg.head_dim_)
+    return {"k": torch.zeros(shape, dtype=_dt(cfg), device=dev),
+            "v": torch.zeros(shape, dtype=_dt(cfg), device=dev),
+            "pos": 0}
+
+
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+    """Run the prompt through the model, build the cache, return the logits
+    of the last position: (logits [B, Vp], cache)."""
+    x = _embed(cfg, params, batch)
+    b, s, _ = x.shape
+    cache = init_cache(cfg, b, max_len, x.device)
+    sin, cos = _rope_for(cfg, s, x.device)
+    for i in range(cfg.num_layers):
+        lw = layer(params, i)
+        a, (k, v) = _attn_block(cfg, x, lw, sin, cos)
+        cache["k"][i, :, :s] = k      # in place into the preallocated cache
+        cache["v"][i, :, :s] = v
+        x = x + a
+        x = x + _ffn_block(cfg, x, lw)
+    cache["pos"] = s
+    # unembed the last position only: the same values as the reference's
+    # logits[:, -1] (norm and head act per position) without a
+    # [B, S, Vp] logits slab (8 GB at minitron-4b, 8 x 1000 tokens)
+    return _unembed(cfg, params, x[:, -1:])[:, 0], cache
+
+
+def decode_step(cfg: ModelConfig, params: dict, cache: dict,
+                tokens: torch.Tensor):
+    """One token for every sequence: tokens [B, 1] -> (logits [B, Vp],
+    cache).  The returned cache holds the same k/v buffers, written at
+    ``pos`` in place, and ``pos + 1``."""
+    pos = int(cache["pos"])
+    x = _embed(cfg, params, {"tokens": tokens})
+    sin, cos = _rope_for(cfg, 1, x.device, offset=pos)
+    for i in range(cfg.num_layers):
+        lw = layer(params, i)
+        a, _ = _attn_block(cfg, x, lw, sin, cos,
+                           kv_cache=(cache["k"][i], cache["v"][i]), pos=pos)
+        x = x + a
+        x = x + _ffn_block(cfg, x, lw)
+    logits = _unembed(cfg, params, x)
+    return logits[:, -1], {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

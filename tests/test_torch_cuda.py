@@ -15,7 +15,9 @@ from repro_torch.core import apsp as p_apsp  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ell as p_ell  # noqa: E402
 from repro_torch.kernels import fw as p_fw  # noqa: E402
+from repro_torch.kernels import flash_attention as p_flash  # noqa: E402
 from repro_torch.kernels import minplus as p_minplus  # noqa: E402
+from repro_torch.kernels import wkv as p_wkv  # noqa: E402
 
 _INF = 1.0e18
 
@@ -24,6 +26,8 @@ _INF = 1.0e18
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernels have no CPU mode")
+    # the plain versions' float32 products run in full float32 on the card
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -113,3 +117,112 @@ def test_cuda_apsp_backends_and_subgradients_agree(cuda):
     d = p_apsp.apsp(wc, "blocked-fw")
     (d * torch.where(d < _INF / 2, g.cpu(), 0.0)).sum().backward()
     assert torch.equal(wc.grad, grads["squaring"].cpu())
+
+
+def _normal(seed, *shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        shape).astype(np.float32))
+
+
+def _close(got, want, dtype):
+    # float32: the same float32 math summed in another order; bf16: both
+    # round float32 results to bf16, so they may differ by one bf16 ulp
+    # (at most |x| / 128)
+    atol, rtol = (2e-5, 1e-4) if dtype == torch.float32 else (1e-3, 8e-3)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,causal,lk_valid", [
+    (2, 200, 200, 6, 2, 128, True, None),      # ragged prefill, GQA g = 3
+    (1, 128, 300, 4, 1, 64, True, None),       # cached prefix, MQA
+    (1, 96, 160, 4, 4, 64, False, 150),        # not causal, padded keys
+    (2, 1, 1016, 24, 8, 128, True, 1001),      # one decode step
+    (1, 128, 128, 2, 1, 64, True, 64),         # first rows see no key
+])
+def test_cuda_flash_attention_matches_plain(cuda, dtype, b, lq, lk, hq, hkv,
+                                            d, causal, lk_valid):
+    q = _normal(1, b, lq, hq, d).to(cuda, dtype)
+    k = _normal(2, b, lk, hkv, d).to(cuda, dtype)
+    v = _normal(3, b, lk, hkv, d).to(cuda, dtype)
+    before = _build.LAUNCHES["flash_attention"]
+    got = p_flash.flash_attention(q, k, v, causal=causal, lk_valid=lk_valid)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    want = p_flash.flash_attention_plain(q, k, v, causal=causal,
+                                         lk_valid=lk_valid)
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_reads_a_cache_slice_in_place(cuda):
+    """A layer's [B, max_len, Hkv, D] slice of a stacked cache goes in as
+    a strided view, with q a view of a wider projection."""
+    cache = _normal(4, 3, 2, 80, 2, 64).to(cuda, torch.bfloat16)
+    proj = _normal(5, 2, 1, 2 * 6 * 64).to(cuda, torch.bfloat16)
+    q = proj[..., :6 * 64].view(2, 1, 6, 64)
+    k, v = cache[1], cache[2]
+    got = p_flash.flash_attention(q, k, v, causal=True, lk_valid=57)
+    want = p_flash.flash_attention_plain(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), lk_valid=57)
+    _close(got, want, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh,t,n,with_state,lane_u", [
+    (2, 64, 16, False, False),
+    (3, 70, 32, True, True),       # ragged T
+    (1, 32, 64, True, False),
+    (64, 1000, 64, True, True),    # ragged, main-path head size
+])
+def test_cuda_wkv_matches_plain(cuda, bh, t, n, with_state, lane_u):
+    r, k, v = (_normal(s, bh, t, n).to(cuda) for s in (6, 7, 8))
+    log_w = -torch.clamp(torch.exp(_normal(9, bh, t, n)), 1e-6,
+                         2.5).to(cuda)
+    u = (_normal(10, bh, n) if lane_u else _normal(10, n)).to(cuda) * 0.5
+    s0 = _normal(11, bh, n, n).to(cuda) * 0.3 if with_state else None
+    before = _build.LAUNCHES["wkv_chunked"]
+    o, s = p_wkv.wkv_chunked(r, k, v, log_w, u, s0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv_chunked"] == before + 1
+    want_o, want_s = p_wkv.wkv_chunked_plain(r, k, v, log_w, u, s0)
+    # the same chunked float32 algebra summed in another order; exponents
+    # up to +-80 within a chunk scale the rounding of exp
+    torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["minitron-4b", "rwkv6-7b"])
+def test_cuda_serving_matches_cpu(cuda, arch):
+    """The smoke config served on the card (K4 or K5 on the path) gives
+    the CPU's logits (plain versions) from the same float32 weights."""
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = get_smoke(arch)
+    params = model.get_model(cfg, "cpu").init_params(0)
+    on_card = {k: ({n: w.to(cuda) for n, w in v.items()}
+                   if isinstance(v, dict) else v.to(cuda))
+               for k, v in params.items()}
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 45)).astype(np.int32)
+    rec = {}
+    _build.reset_launches()
+    toks = serve.generate(cfg, on_card, prompts, 4, device=cuda, record=rec)
+    kernel = "flash_attention" if cfg.family == "dense" else "wkv_chunked"
+    assert _build.LAUNCHES[kernel] > 0
+    # teacher-forced on the CPU with the card's tokens
+    cpu_model = model.get_model(cfg, "cpu")
+    want, cache = cpu_model.prefill(params, {"tokens": torch.from_numpy(
+        prompts)}, 49)
+    for i, got in enumerate(rec["logits"]):
+        # float32 on both (no TF32): order of additions only
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        if i < 3:
+            want, cache = cpu_model.decode_step(
+                params, cache, torch.from_numpy(toks[:, 45 + i:46 + i]))

@@ -71,7 +71,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 
 def test_kernel_sources_and_bindings_agree():
     names = {p.name for p in _build.SOURCES}
-    assert names == {"minplus.cu", "fw_pivot.cu", "ell.cu"}
+    assert names == {"minplus.cu", "fw_pivot.cu", "ell.cu",
+                     "flash_attention.cu", "wkv.cu"}
     text = "".join(p.read_text() for p in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry
@@ -81,7 +82,8 @@ def test_kernel_sources_and_bindings_agree():
         assert "Replaces the TPU kernel" in head, src.name
         assert "bounds it on Hopper" in head, src.name
     assert set(_build.LAUNCHES) == {"minplus_acc", "fw_pivot",
-                                    "ell_relax_round"}
+                                    "ell_relax_round", "flash_attention",
+                                    "wkv_chunked"}
     assert _build.BUILD_DIR.relative_to(ROOT) == pathlib.Path("build/kernels")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
@@ -97,3 +99,45 @@ def test_cpu_tensors_never_launch_kernels():
         assert np.isfinite(r.throughput) and r.throughput > 0
     assert _build.LAUNCHES == before
     assert dict(_build.SITE_LAUNCHES) == sites
+
+
+def test_importing_lm_modules_builds_nothing():
+    code = ("import sys, repro_torch.kernels.flash_attention, "
+            "repro_torch.kernels.wkv, repro_torch.models, "
+            "repro_torch.models.rwkv6, repro_torch.configs, "
+            "repro_torch.launch.serve\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro', 'triton'))\n"
+            "assert not bad, bad\n"
+            "from repro_torch.kernels import _build\n"
+            "assert _build.load.cache_info().currsize == 0, 'built on import'\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_lm_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model, rwkv6, transformer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dense, ssm = get_smoke("minitron-4b"), get_smoke("rwkv6-7b")
+    prompts = np.zeros((1, 4), np.int32)
+    for cfg in (dense, ssm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            model.get_model(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.generate(cfg, {}, prompts, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(dense, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rwkv6.init_params(ssm, 0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--arch", "minitron-4b", "--smoke", "--gen", "2"])
+    # asked for the CPU, they run
+    params = model.get_model(dense, "cpu").init_params(0)
+    toks = serve.generate(dense, params, prompts, 2, device="cpu")
+    assert toks.shape == (1, 6)

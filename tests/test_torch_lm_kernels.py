@@ -1,0 +1,224 @@
+"""The port's K4 (flash attention) and K5 (chunked WKV-6) modules against
+the reference.
+
+On the CPU each wrapper runs its kernel's plain torch version.  Each is
+held against the reference's Pallas kernel in interpret mode, against the
+reference's plain oracle (``repro.kernels.ref``) and against the jnp
+function the reference's models run in its place (``transformer.
+_attention_decode``, ``layers.attention``, ``rwkv6._wkv_chunked``).  Inputs
+are made with numpy from explicit seeds and handed to both packages.  The
+CUDA kernels themselves are held against these plain versions on the card
+by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels import flash_attention as r_flash  # noqa: E402
+from repro.kernels import ops as r_ops  # noqa: E402
+from repro.kernels import ref as r_ref  # noqa: E402
+from repro.models import layers as r_layers  # noqa: E402
+from repro.models import rwkv6 as r_rwkv6  # noqa: E402
+from repro.models import transformer as r_tfm  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import flash_attention as p_flash  # noqa: E402
+from repro_torch.kernels import ops as p_ops  # noqa: E402
+from repro_torch.kernels import wkv as p_wkv  # noqa: E402
+from repro_torch.models import layers as p_layers  # noqa: E402
+from repro_torch.models import rwkv6 as p_rwkv6  # noqa: E402
+
+# float32 attention: the same softmax in both packages, summed in another
+# order (the reference's own kernel-vs-oracle tolerance, test_kernels.py)
+ATOL, RTOL = 2e-5, 1e-4
+
+
+def _normal(seed, *shape, dtype=np.float32):
+    return np.random.default_rng(seed).standard_normal(shape).astype(dtype)
+
+
+def _qkv(seed, b, lq, lk, hq, hkv, d):
+    return (_normal(seed, b, lq, hq, d), _normal(seed + 1, b, lk, hkv, d),
+            _normal(seed + 2, b, lk, hkv, d))
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+# ---------------------------------------------------------------------------
+# K4: flash attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,causal", [
+    (1, 128, 128, 4, 4, 64, True),
+    (2, 256, 256, 8, 2, 64, True),
+    (1, 256, 256, 4, 1, 128, True),     # MQA
+    (2, 128, 256, 4, 4, 64, True),      # cross lengths (cached prefix)
+    (1, 256, 256, 4, 4, 64, False),
+    (1, 200, 300, 4, 2, 64, True),      # non-multiple-of-tile
+])
+def test_plain_flash_matches_pallas_and_ref(b, lq, lk, hq, hkv, d, causal):
+    q, k, v = _qkv(lq + lk, b, lq, lk, hq, hkv, d)
+    got = p_ops.flash_attention(_t(q), _t(k), _t(v), causal=causal).numpy()
+    pallas = np.asarray(r_ops.flash_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+        interpret=True))
+    oracle = np.asarray(r_ref.flash_attention_ref(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal))
+    np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, oracle, atol=ATOL, rtol=RTOL)
+
+
+def test_plain_flash_bf16_matches_ref():
+    q, k, v = _qkv(5, 1, 128, 128, 4, 2, 64)
+    qb, kb, vb = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    want = np.asarray(r_ref.flash_attention_ref(qb, kb, vb, causal=True),
+                      np.float32)
+    # the same bf16-rounded inputs in both packages
+    tq, tk, tv = (_t(np.asarray(x, np.float32)).to(torch.bfloat16)
+                  for x in (qb, kb, vb))
+    got = p_ops.flash_attention(tq, tk, tv, causal=True)
+    assert got.dtype == torch.bfloat16
+    # both round a float32 softmax to bf16 (8 mantissa bits): the
+    # reference's own bf16 tolerance
+    np.testing.assert_allclose(got.float().numpy(), want, atol=3e-2,
+                               rtol=3e-2)
+
+
+@pytest.mark.parametrize("kv_len", [1, 37, 64])
+def test_plain_flash_decode_matches_attention_decode(kv_len):
+    """Lq = 1 over a cache of 64 whose first ``kv_len`` positions are
+    valid (the rest hold junk that must not count), as a decode step runs
+    it: K4 with lk_valid = pos + 1."""
+    q, k, v = _qkv(kv_len, 2, 1, 64, 6, 2, 32)
+    got = p_ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                lk_valid=kv_len).numpy()
+    want = np.asarray(r_tfm._attention_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=kv_len,
+        q_offset=kv_len - 1))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_plain_flash_valid_prefix_matches_blockwise_attention():
+    """Several queries at the end of a valid prefix of the keys: the
+    reference's blockwise jnp attention with q_offset = kv_len - Lq."""
+    q, k, v = _qkv(11, 2, 24, 96, 4, 2, 32)
+    got = p_layers.attention(_t(q), _t(k), _t(v), causal=True,
+                             kv_len=70).numpy()
+    want = np.asarray(r_layers.attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        q_offset=70 - 24, kv_len=70, block=32))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_plain_flash_fully_masked_rows_give_zero():
+    """Lq > lk_valid: the first queries see no key; the Pallas kernel
+    (called directly, tile-aligned) gives 0 there, not NaN."""
+    q, k, v = _qkv(13, 1, 128, 128, 2, 1, 64)
+    got = p_ops.flash_attention(_t(q), _t(k), _t(v), causal=True,
+                                lk_valid=64).numpy()
+    want = np.asarray(r_flash.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=True,
+        lk_valid=64, interpret=True))
+    assert np.all(np.isfinite(got))
+    assert np.array_equal(got[:, :64], np.zeros_like(got[:, :64]))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_flash_wrapper_checks_and_windowed_attention_raises():
+    q, k, v = (_t(x) for x in _qkv(3, 1, 8, 8, 4, 2, 16))
+    with pytest.raises(ValueError, match="lk_valid"):
+        p_ops.flash_attention(q, k, v, lk_valid=9)
+    with pytest.raises(ValueError, match="query heads"):
+        p_ops.flash_attention(q[:, :, :3], k, v)
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        p_layers.attention(q, k, v, window=4)
+
+
+# ---------------------------------------------------------------------------
+# K5: chunked WKV-6
+# ---------------------------------------------------------------------------
+
+def _wkv_inputs(seed, bh, t, n):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal((bh, t, n)).astype(np.float32)
+               for _ in range(3))
+    log_w = -np.clip(np.exp(rng.standard_normal((bh, t, n))), 1e-6,
+                     2.5).astype(np.float32)
+    u = (rng.standard_normal(n) * 0.5).astype(np.float32)
+    return r, k, v, log_w, u
+
+
+WKV_SHAPES = [(2, 64, 16), (3, 70, 32), (1, 32, 64)]
+
+
+@pytest.mark.parametrize("bh,t,n", WKV_SHAPES)
+def test_plain_wkv_matches_pallas_and_serial_ref(bh, t, n):
+    r, k, v, log_w, u = _wkv_inputs(t + n, bh, t, n)
+    got, _ = p_ops.wkv_chunked(*map(_t, (r, k, v, log_w, u)))
+    js = [jnp.asarray(x) for x in (r, k, v, log_w, u)]
+    pallas = np.asarray(r_ops.wkv_chunked(*js, interpret=True))
+    serial = np.asarray(r_ref.wkv_ref(*js))
+    # the same chunked float32 algebra as the Pallas kernel, summed in
+    # another order; exponents up to +-80 within a chunk scale the
+    # rounding of exp, so relative 1e-4
+    np.testing.assert_allclose(got.numpy(), pallas, atol=1e-4, rtol=1e-4)
+    # chunked vs the serial scan: the reference's own tolerance
+    np.testing.assert_allclose(got.numpy(), serial, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.parametrize("bh,t,n", WKV_SHAPES)
+def test_plain_wkv_with_state_matches_rwkv6_chunked(bh, t, n):
+    """A non-zero s0 in, s_final out, per-lane bonus: against the model's
+    jnp ``_wkv_chunked`` (lanes as heads of one batch row), with a ragged
+    T padded for the reference as its ``_time_mix`` pads it."""
+    r, k, v, log_w, _ = _wkv_inputs(7 * t + n, bh, t, n)
+    rng = np.random.default_rng(t * n)
+    u = (rng.standard_normal((bh, n)) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal((bh, n, n)) * 0.3).astype(np.float32)
+    got_o, got_s = p_ops.wkv_chunked(*map(_t, (r, k, v, log_w, u, s0)))
+    pad = (-t) % p_wkv.CHUNK
+    lay = [jnp.asarray(np.pad(x, ((0, 0), (0, pad), (0, 0))).transpose(
+        1, 0, 2)[None]) for x in (r, k, v, log_w)]          # [1, T, BH, n]
+    want_o, want_s = r_rwkv6._wkv_chunked(*lay, jnp.asarray(u),
+                                          jnp.asarray(s0)[None])
+    want_o = np.asarray(want_o)[0, :t].transpose(1, 0, 2)
+    # same chunked algebra, another summation order (see above)
+    np.testing.assert_allclose(got_o.numpy(), want_o, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s)[0],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_model_wkv_folds_heads_into_lanes():
+    """The port's ``rwkv6._wkv_chunked`` ([B, T, H, n] with u [H, n])
+    equals the reference's on two batch rows of three heads."""
+    b, t, h, n = 2, 45, 3, 8
+    rng = np.random.default_rng(17)
+    r, k, v = (rng.standard_normal((b, t, h, n)).astype(np.float32)
+               for _ in range(3))
+    log_w = -np.clip(np.exp(rng.standard_normal((b, t, h, n))), 1e-6,
+                     2.5).astype(np.float32)
+    u = rng.standard_normal((h, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, n, n)).astype(np.float32)
+    got_o, got_s = p_rwkv6._wkv_chunked(*map(_t, (r, k, v, log_w, u, s0)))
+    pad = (-t) % p_wkv.CHUNK
+    lay = [jnp.asarray(np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))))
+           for x in (r, k, v, log_w)]
+    want_o, want_s = r_rwkv6._wkv_chunked(*lay, jnp.asarray(u),
+                                          jnp.asarray(s0))
+    np.testing.assert_allclose(got_o.numpy(), np.asarray(want_o)[:, :t],
+                               atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_cpu_tensors_never_launch_lm_kernels():
+    before = dict(_build.LAUNCHES)
+    q, k, v = (_t(x) for x in _qkv(1, 1, 16, 16, 2, 1, 16))
+    p_ops.flash_attention(q, k, v, site="full")
+    p_flash.flash_attention(q, k, v)
+    p_ops.wkv_chunked(*map(_t, _wkv_inputs(2, 2, 40, 8)))
+    assert _build.LAUNCHES == before
+    assert "flash_attention/full" not in _build.SITE_LAUNCHES
