@@ -10,8 +10,9 @@ Phases (any failure exits non-zero; no phase catches and continues):
 2. kernels — K1 ``minplus_acc``, K2 ``fw_pivot`` and K3 ``ell_relax_round``
    against their plain torch versions on the card at main-path shapes, on
    integer weights 1-16 over random-regular patterns with 1e18 non-edges:
-   every result must match exactly; CUDA-event times (median of 30 runs
-   after warm-up) beside the bound;
+   every result must match exactly; device times per call beside the
+   bound (``time_ms``: CUDA events around 30 calls queued behind a device
+   sleep, so the host's launching is not timed; median of 3 batches);
 3. main path, sparse — 20 seeds of RRG(512, 16) with 8 servers per switch
    (4,096 servers) under permutation traffic through
    ``get_engine("dual", tol=1e-4).solve_batch`` ("auto" resolves to
@@ -22,12 +23,17 @@ Phases (any failure exits non-zero; no phase catches and continues):
 5. oracle — 3 seeds of RRG(40, 10) with 5 servers per switch: the HiGHS
    optimum <= dual ub <= 1.05 x optimum at 800 iterations, and the card's
    ub within rel 1e-3 of the same solve on the CPU (plain versions);
-6. LM kernels — K4 ``flash_attention`` (prefill B=8, L=1000, 24/8 heads,
-   D=128, bf16; decode Lq=1, lk_valid=1001 over a cache of 1016; aligned
-   L=1024) and K5 ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and
-   without s0) against their plain versions on the card, within stated
-   tolerances; CUDA-event times beside the bound and, for K4, beside
-   ``scaled_dot_product_attention`` (timed here only, as a yardstick);
+6. LM kernels — K4 ``flash_attention`` on each of its routes (prefill
+   B=8, L=1000, 24/8 heads, D=128, bf16: route "mma"; decode Lq=1,
+   lk_valid=1001 over a cache of 1016, bf16: route "decode"; aligned
+   L=1024 bf16: "mma"; the float32 prefill: route "f32") and K5
+   ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and without s0)
+   against their plain versions on the card, within stated tolerances;
+   device times beside the bound and, for K4, beside
+   ``scaled_dot_product_attention`` (timed here only, as a yardstick),
+   beside the earlier CUDA-core kernel on the same bf16 inputs and beside
+   the time of one call with its launching (``call_ms``); the decode row
+   takes 4 input sets in turn, so its cache comes from device memory;
 7. minitron-4b served at full width and depth (32 layers, float32
    parameters, bf16 compute) through ``repro_torch.launch.serve.generate``:
    8 prompts of 1000 tokens, 16 greedy tokens; every picked token's logits
@@ -47,13 +53,16 @@ never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
 ``paths`` lists each run that launched it, with K1's launches in the
 blocked-fw run split by panel (row, column, outer) and K4's split into
-the full-sequence (prefill) and decode sites.  K4's ``launches`` are from
-minitron-4b's full-depth generate, K5's from rwkv6-7b's.
+the full-sequence (prefill) and decode sites and by route.  K4's
+``launches`` are from minitron-4b's full-depth generate, K5's from
+rwkv6-7b's; every K4 launch of the bf16 prefill must take route "mma" and
+every one of a decode step route "decode".
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import pathlib
@@ -86,8 +95,10 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn) -> float:
-    """Median milliseconds of one call (CUDA events, after warm-up)."""
+def call_ms(fn) -> float:
+    """Median milliseconds between CUDA events around one call, after
+    warm-up: the device's time or, for a call whose launching takes longer
+    than its kernels, the host's."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -100,6 +111,37 @@ def time_ms(fn) -> float:
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def time_ms(fn) -> float:
+    """Device milliseconds of one call: after warm-up, TIMING_RUNS calls
+    are queued behind a device sleep that outlasts their launching, so the
+    CUDA events around them time the device alone (median of 3 batches).
+    ``fn`` may be a list of calls, taken in turn (inputs that must come
+    from device memory, not from the L2 cache)."""
+    fns = fn if isinstance(fn, (list, tuple)) else [fn]
+    for f in fns:
+        f()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMING_RUNS):
+        fns[i % len(fns)]()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # 2e9 cycles a second is above the card's clock: the sleep errs long
+    cycles = int(1.5 * host_s * 2e9) + 1_000_000
+    times = []
+    for _ in range(3):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for i in range(TIMING_RUNS):
+            fns[i % len(fns)]()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / TIMING_RUNS)
     return statistics.median(times)
 
 
@@ -296,6 +338,11 @@ def profile_steps(engine, topos, dems) -> dict:
 # K4's output is bf16 on the main path: kernel and plain version compute in
 # float32 and round to bf16, so they may differ by one bf16 ulp (<= |x|/128)
 K4_BF16_TOL = (1e-3, 8e-3)
+# float32 K4: the same float32 math summed in another order
+K4_F32_TOL = (2e-5, 1e-4)
+K4_SOURCES = {"mma": "src/repro_torch/csrc/flash_attention_mma.cu",
+              "decode": "src/repro_torch/csrc/flash_decode.cu",
+              "f32": "src/repro_torch/csrc/flash_attention.cu"}
 # K5: the same chunked float32 algebra summed in another order; exponents up
 # to +-80 inside a chunk scale the rounding of exp
 K5_TOL = (1e-4, 1e-4)
@@ -353,7 +400,23 @@ def sdpa_call(q, k, v, lk_valid):
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
 
 
+def earlier_k4(lib, q, k, v, lk_valid):
+    """One call of the CUDA-core K4 entry (``csrc/flash_attention.cu``, route
+    "f32") on bf16 inputs, as every bf16 call ran before the tensor-core
+    and split-KV routes: a timing yardstick only."""
+    from repro_torch.kernels import _build
+    b, lq, hq, d = q.shape
+    out = torch.empty_like(q)
+    args = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, b,
+            lq, lk_valid, hq, k.shape[2], d, 1, 1.0 / d ** 0.5,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *out.stride()[:3], _build.stream_ptr(q.device))
+    return lambda: _build.check(lib.flash_attention(*args),
+                                "flash_attention (CUDA cores)")
+
+
 def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
+    from repro_torch.kernels import _build
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
 
@@ -362,36 +425,67 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
 
     out = {}
     b, hq, hkv, d = 8, 24, 8, 128
-    for key, label, lq, lk, valid in (
+    lib = _build.load()
+    for key, label, lq, lk, valid, dtype, sets in (
             ("prefill", "prefill [8,1000,24/8,128] bf16 causal", 1000, 1000,
-             1000),
+             1000, torch.bfloat16, 1),
             ("decode", "decode [8,1,24/8,128] bf16, cache 1016, lk_valid 1001",
-             1, 1016, 1001),
+             1, 1016, 1001, torch.bfloat16, 4),
             ("aligned", "aligned [8,1024,24/8,128] bf16 causal", 1024, 1024,
-             1024)):
-        q = randn(b, lq, hq, d, dtype=torch.bfloat16)
-        k = randn(b, lk, hkv, d, dtype=torch.bfloat16)
-        v = randn(b, lk, hkv, d, dtype=torch.bfloat16)
+             1024, torch.bfloat16, 1),
+            ("prefill_f32", "prefill [8,1000,24/8,128] f32 causal", 1000,
+             1000, 1000, torch.float32, 1)):
+        # decode: 4 input sets taken in turn (4 x 33 MB of cache > the 50 MB
+        # L2), so each timed call reads its keys from device memory as a
+        # decode step does
+        inputs = [(randn(b, lq, hq, d, dtype=dtype),
+                   randn(b, lk, hkv, d, dtype=dtype),
+                   randn(b, lk, hkv, d, dtype=dtype)) for _ in range(sets)]
+        q, k, v = inputs[0]
+        route = kfa.flash_route(dtype, lq, hq // hkv)
+        tol = K4_BF16_TOL if dtype == torch.bfloat16 else K4_F32_TOL
+        before = _build.SITE_LAUNCHES[f"flash_attention/route:{route}"]
         got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid)
+        if _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] != \
+                before + 1:
+            raise SystemExit(f"chip_smoke: K4 {label} did not take route "
+                             f"{route}")
         want = kfa.flash_attention_plain(q, k, v, causal=True,
                                          lk_valid=valid)
-        err = close(f"K4 {label}", got, want, K4_BF16_TOL)
+        err = close(f"K4 {label} (route {route})", got, want, tol)
         # (query, key) pairs this input needs: causal, aligned to the end
         pairs = sum(min(valid, i + valid - lq + 1) for i in range(lq))
         flops = 4.0 * b * hq * d * pairs
-        nbytes = 2.0 * (2 * b * lq * hq * d + 2 * b * valid * hkv * d)
-        bnd, kind = flop_bound_ms(flops, BF16_FLOP_PER_S, nbytes)
-        row = {"kernel": "flash_attention", "shape": label,
-               "ms": time_ms(lambda: kfa.flash_attention(
-                   q, k, v, causal=True, lk_valid=valid)),
-               "plain_ms": time_ms(lambda: kfa.flash_attention_plain(
-                   q, k, v, causal=True, lk_valid=valid)),
-               "library_ms": time_ms(sdpa_call(q, k, v, valid)),
+        esize = q.element_size()
+        nbytes = esize * (2 * b * lq * hq * d + 2 * b * valid * hkv * d)
+        bnd, kind = flop_bound_ms(
+            flops, BF16_FLOP_PER_S if dtype == torch.bfloat16
+            else FP32_FLOP_PER_S, nbytes)
+
+        def each(call):
+            return [functools.partial(call, *x) for x in inputs]
+
+        kernel = functools.partial(kfa.flash_attention, causal=True,
+                                   lk_valid=valid)
+        plain = functools.partial(kfa.flash_attention_plain, causal=True,
+                                  lk_valid=valid)
+        row = {"kernel": "flash_attention", "shape": label, "route": route,
+               "source": K4_SOURCES[route],
+               "ms": time_ms(each(kernel)),
+               "call_ms": call_ms(lambda: kernel(q, k, v)),
+               "plain_ms": time_ms(each(plain)),
+               "library_ms": time_ms([sdpa_call(*x, valid) for x in inputs]),
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
-               "tolerance": K4_BF16_TOL}
+               "tolerance": tol}
+        if dtype == torch.bfloat16:
+            # the earlier design (float32 FMA on the CUDA cores, one block
+            # per 64 rows), called through its C entry on the same inputs:
+            # timed only, never counted and never on the path
+            row["cuda_core_ms"] = time_ms(
+                [earlier_k4(lib, *x, valid) for x in inputs])
         log(json.dumps(row))
         out[f"flash_attention/{key}"] = row
-        del q, k, v, got, want
+        del q, k, v, got, want, inputs
 
     bh, n = 512, 64
     for key, t, with_s0 in (("T1000+s0", 1000, True), ("T1000", 1000, False),
@@ -563,9 +657,12 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
         raise SystemExit(f"chip_smoke: {name} did not launch {kernel}")
     if kernel == "flash_attention" and sites != {
             "flash_attention/full": nl,
-            "flash_attention/decode": nl * rec["decode_steps"]}:
+            "flash_attention/decode": nl * rec["decode_steps"],
+            "flash_attention/route:mma": nl,
+            "flash_attention/route:decode": nl * rec["decode_steps"]}:
         raise SystemExit(f"chip_smoke: {name}: K4 not in every layer of the "
-                         f"prefill and of every decode step: {sites}")
+                         "prefill (route mma) and of every decode step "
+                         f"(route decode): {sites}")
     if kernel == "wkv_chunked" and counts[kernel] != nl:
         raise SystemExit(f"chip_smoke: {name}: K5 not in every layer of the "
                          f"prefill: {counts}")
@@ -621,6 +718,14 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
                  "steps": 1 + rec4["decode_steps"]})
     if _build.LAUNCHES[kernel] == 0:
         raise SystemExit(f"chip_smoke: {name4} did not launch {kernel}")
+    nl4, steps4 = cfg4.num_layers, rec4["decode_steps"]
+    if kernel == "flash_attention" and dict(_build.SITE_LAUNCHES) != {
+            "flash_attention/full": nl4, "flash_attention/decode": nl4 * steps4,
+            "flash_attention/route:f32": nl4,
+            "flash_attention/route:decode": nl4 * steps4}:
+        raise SystemExit(f"chip_smoke: {name4}: K4 not on route f32 at the "
+                         "prefill and route decode at every step: "
+                         f"{dict(_build.SITE_LAUNCHES)}")
     got4 = torch.stack(rec4["logits"], dim=1)
     with plain_path(kops, kfa, kwkv):
         plain4 = teacher_forced(model4, params4, toks4)
@@ -641,7 +746,9 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
                          "not separate a bf16 computation")
     del got4, plain4, bf16_4, params4, model4
 
-    pats = {"K4 flash_attention": "flash_attention_kernel",
+    pats = {"K4 mma": "flash_attention_mma_kernel",
+            "K4 decode": "flash_decode_",
+            "K4 f32": "flash_attention_kernel",
             "K5 wkv_chunked": "wkv_chunked_kernel"}
     prof = profile_serving(model, params, prompts, pats)
     log(json.dumps({"profile": f"{arch} full depth", **prof}))
@@ -738,6 +845,11 @@ def main() -> None:
     if not np.all(np.abs(card_ub / cpu_ub - 1) <= 1e-3):
         raise SystemExit("chip_smoke: card and CPU dual bounds disagree")
 
+    # phases 6-8: float32 products in full float32 (the float32 K4 row, the
+    # 4-layer check and the float32 plain path)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
     # phase 6: the LM kernels against their plain versions
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.kernels import wkv as kwkv
@@ -745,10 +857,7 @@ def main() -> None:
     lm_timed = phase_lm_kernels(kfa, kwkv)
     log(f"phase 6 (LM kernels) wall {time.perf_counter() - t0:.1f} s")
 
-    # phases 7-8: the LM serving path at full width and depth; float32
-    # products in full float32 (the 4-layer check and the float32 plain path)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    # phases 7-8: the LM serving path at full width and depth
     served = {}
     for arch, kernel, seed in (("minitron-4b", "flash_attention", 0),
                                ("rwkv6-7b", "wkv_chunked", 1)):
@@ -771,7 +880,7 @@ def main() -> None:
                             "_relax_round_kernel"),
     }
     meta.update({
-        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+        "flash_attention": (K4_SOURCES["mma"],
                             "src/repro/kernels/flash_attention.py:114 "
                             "flash_attention_pallas (_flash_kernel :32)"),
         "wkv_chunked": ("src/repro_torch/csrc/wkv.cu",
@@ -810,8 +919,9 @@ def main() -> None:
             entry["tolerance"] = t["tolerance"]
             entry["shapes"] = {k.split("/", 1)[1]: {
                 f: v for f, v in row.items() if f in (
-                    "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                    "bound_kind", "max_abs_err")}
+                    "shape", "route", "source", "ms", "call_ms", "plain_ms",
+                    "library_ms", "cuda_core_ms", "bound_ms", "bound_kind",
+                    "max_abs_err")}
                 for k, row in lm_timed.items() if k.startswith(name + "/")}
         kernels.append(entry)
     log(json.dumps({"serving": {

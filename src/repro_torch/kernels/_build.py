@@ -11,7 +11,9 @@ fallback.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made, and
 ``SITE_LAUNCHES`` splits them by the caller that names itself (the blocked
-Floyd-Warshall panels, the full-sequence and the decode attention); a run
+Floyd-Warshall panels, the full-sequence and the decode attention) and, for
+K4, by route (``flash_attention/route:mma``, ``route:decode``,
+``route:f32``); a run
 resets both with ``reset_launches`` and reads them afterwards to show which
 kernels the path went through.
 """
@@ -51,10 +53,18 @@ _SIGNATURES = {
     "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         *(_L,) * 12, _P),
+    "flash_attention_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            *(_L,) * 12, _P),
+    "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                     _F, *(_L,) * 12, _P),
     "wkv_chunked": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
 }
 
-LAUNCHES: dict[str, int] = dict.fromkeys(_SIGNATURES, 0)
+# the kernels K1-K5; K4's three C entries (its routes) all count under
+# "flash_attention", split by route in SITE_LAUNCHES
+LAUNCHES: dict[str, int] = dict.fromkeys(
+    ("minplus_acc", "fw_pivot", "ell_relax_round", "flash_attention",
+     "wkv_chunked"), 0)
 SITE_LAUNCHES: collections.Counter[str] = collections.Counter()
 _BUILD_SECONDS: list[float] = []
 

@@ -1,6 +1,5 @@
-"""Grouped-query attention with an online softmax: the plain torch version
-and the wrapper of the hand-written CUDA kernel K4
-(``csrc/flash_attention.cu``).
+"""Grouped-query attention with an online softmax: the plain torch versions
+and the wrapper of the hand-written CUDA kernel K4.
 
     out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h // g]) v[b, j, h // g]
 
@@ -14,12 +13,26 @@ softmax runs in float32 and the output is cast to ``q``'s type.
 K4 replaces the TPU kernel ``_flash_kernel`` (via ``flash_attention_pallas``);
 in the model it takes the place of the reference's blockwise jnp
 ``layers.attention`` at prefill and of ``transformer._attention_decode`` at
-decode (``Lq = 1``, ``lk_valid = pos + 1``).  It is bound by operations at
-prefill and by bytes at decode; see the note in its source.
+decode (``Lq = 1``, ``lk_valid = pos + 1``).  On the card it has three
+routes, picked by ``flash_route`` from the dtype and the number of rows
+(query position x group head, ``Lq * Hq / Hkv``) per (batch, KV head):
 
-``flash_attention`` picks by device: the kernel for CUDA tensors (it masks
-its ragged edges itself, so nothing is padded, whatever ``Lq`` or ``Lk``),
-the plain version for CPU tensors.  There is no fallback between the two.
+* ``"decode"`` (at most ``DECODE_ROWS`` = 16 rows, float32 or bf16: every
+  decode step): ``csrc/flash_decode.cu``, the keys cut into splits of
+  ``DECODE_SPLIT`` across blocks, one partial (acc, m, l) per split merged
+  in split order.  ``flash_attention_split_plain`` is its algebra in torch.
+* ``"mma"`` (more rows, bf16: prefill): ``csrc/flash_attention_mma.cu``,
+  Q.K^T and P.V on the tensor cores.
+* ``"f32"`` (more rows, float32): ``csrc/flash_attention.cu``, float32 FMA
+  on the CUDA cores.
+
+Prefill is bound by operations and decode by bytes; see the notes in the
+sources.
+
+``flash_attention`` picks by device: a route's kernel for CUDA tensors (it
+masks its ragged edges itself, so nothing is padded, whatever ``Lq`` or
+``Lk``), the plain version for CPU tensors.  There is no fallback between
+them, and the route never depends on a failure.
 """
 from __future__ import annotations
 
@@ -29,9 +42,15 @@ import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["flash_attention_plain", "flash_attention", "D_MAX"]
+__all__ = ["flash_attention_plain", "flash_attention", "flash_route",
+           "flash_split_partials_plain", "flash_split_combine_plain",
+           "flash_attention_split_plain", "D_MAX", "DECODE_ROWS",
+           "DECODE_SPLIT", "NEG"]
 
-D_MAX = 128   # largest head dim K4 takes
+D_MAX = 128        # largest head dim K4 takes
+DECODE_ROWS = 16   # rows per (batch, KV head) up to which route "decode" runs
+DECODE_SPLIT = 64  # keys per split of route "decode" (SPLIT in flash_decode.cu)
+NEG = -1.0e30      # the kernels' masked score, and m of a split that saw no key
 
 
 def _scale(d: int, scale: float | None) -> float:
@@ -65,6 +84,93 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, lq, hq, d).to(q.dtype)
 
 
+def flash_route(dtype: torch.dtype, lq: int, g: int) -> str:
+    """The route K4 takes on the card for ``lq`` queries of ``g`` query heads
+    per KV head: ``"decode"``, ``"mma"`` or ``"f32"``."""
+    if lq * g <= DECODE_ROWS:
+        return "decode"
+    return "mma" if dtype == torch.bfloat16 else "f32"
+
+
+def _nsplit(lk: int) -> int:
+    return max(1, -(-lk // DECODE_SPLIT))
+
+
+def flash_split_partials_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               scale: float | None = None,
+                               lk_valid: int | None = None
+                               ) -> tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]:
+    """Route "decode"'s split kernel in torch: per split of ``DECODE_SPLIT``
+    keys (``ceil(Lk / DECODE_SPLIT)`` of them) and per row ``r = i * g + h``
+    of each KV head, ``acc`` [B, Hkv, S, R, D] = sum_j exp(s_j - m) v_j,
+    ``m`` [B, Hkv, S, R] the max masked score (``NEG`` where the split holds
+    no key the row sees) and ``l`` [B, Hkv, S, R] = sum_j exp(s_j - m), all
+    float32."""
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g, ns = hq // hkv, _nsplit(lk)
+    valid = lk if lk_valid is None else lk_valid
+    rows, pad = lq * g, ns * DECODE_SPLIT - lk
+    qf = q.float().reshape(b, lq, hkv, g, d).permute(0, 2, 1, 3, 4).reshape(
+        b, hkv, rows, d)
+
+    def split(x):
+        x = torch.nn.functional.pad(x.float(), (0, 0, 0, 0, 0, pad))
+        return x.reshape(b, ns, DECODE_SPLIT, hkv, d).permute(0, 3, 1, 2, 4)
+
+    kf, vf = split(k), split(v)
+    s = torch.einsum("bhrd,bhsjd->bhsrj", qf, kf) * _scale(d, scale)
+    kpos = torch.arange(ns * DECODE_SPLIT, device=q.device).reshape(ns, 1, -1)
+    mask = kpos < valid
+    if causal:
+        qpos = torch.arange(rows, device=q.device) // g + (valid - lq)
+        mask = mask & (kpos <= qpos[None, :, None])
+    s = torch.where(mask, s, NEG)
+    m = s.amax(dim=-1)
+    base = torch.where(m == NEG, 0.0, m)
+    p = torch.where(mask, torch.exp(s - base[..., None]), 0.0)
+    return torch.einsum("bhsrj,bhsjd->bhsrd", p, vf), m, p.sum(dim=-1)
+
+
+def flash_split_combine_plain(acc: torch.Tensor, m: torch.Tensor,
+                              l: torch.Tensor) -> torch.Tensor:
+    """Route "decode"'s combine kernel in torch: the splits (axis 2) of
+    each row merged in ascending order, ``M = max m_s`` over the splits
+    with ``l_s > 0``, ``O = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s``,
+    0 where no split saw a key.  A split with ``l_s = 0`` does not count,
+    whatever its ``acc`` holds (the kernel leaves it unwritten).
+    [B, Hkv, R, D] float32."""
+    seen = l > 0
+    mmax = torch.where(seen, m, NEG).amax(dim=2, keepdim=True)
+    w = torch.where(seen, torch.exp(m - mmax), 0.0)
+    num = torch.zeros_like(acc[:, :, 0])
+    den = torch.zeros_like(l[:, :, 0])
+    for s in range(acc.shape[2]):
+        num = num + torch.where(seen[:, :, s, :, None],
+                                w[:, :, s, :, None] * acc[:, :, s], 0.0)
+        den = den + w[:, :, s] * l[:, :, s]
+    return torch.where(den[..., None] > 0,
+                       num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+
+
+def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
+                                v: torch.Tensor, *, causal: bool = True,
+                                scale: float | None = None,
+                                lk_valid: int | None = None) -> torch.Tensor:
+    """Route "decode"'s split-KV algebra in torch (used by the tests): the
+    partials of ``flash_split_partials_plain`` merged by
+    ``flash_split_combine_plain``, laid out as ``flash_attention_plain``'s
+    output and cast to ``q``'s type."""
+    b, lq, hq, d = q.shape
+    hkv = k.shape[2]
+    out = flash_split_combine_plain(*flash_split_partials_plain(
+        q, k, v, causal=causal, scale=scale, lk_valid=lk_valid))
+    return out.reshape(b, hkv, lq, hq // hkv, d).permute(0, 2, 1, 3, 4) \
+        .reshape(b, lq, hq, d).to(q.dtype)
+
+
 def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
            device: torch.device) -> None:
     if x.dim() != 4:
@@ -86,8 +192,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], float32
     or bfloat16; the inputs may be strided views with a contiguous last
     axis (a layer's slice of the KV cache goes in as it is).  CUDA tensors
-    launch K4, CPU tensors run ``flash_attention_plain``.  ``site`` names
-    the caller in ``_build.SITE_LAUNCHES`` (as ``"flash_attention/<site>"``)."""
+    launch K4 on the route ``flash_route`` picks, CPU tensors run
+    ``flash_attention_plain``.  Every launch counts once in
+    ``_build.LAUNCHES["flash_attention"]`` and once under
+    ``"flash_attention/route:<route>"`` in ``_build.SITE_LAUNCHES``;
+    ``site`` names the caller there too (as ``"flash_attention/<site>"``)."""
     b, lq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d:
@@ -112,15 +221,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check(name, x, q.dtype, q.device)
     out = torch.empty((b, lq, hq, d), dtype=q.dtype, device=q.device)
+    route = flash_route(q.dtype, lq, hq // hkv)
     lib = _build.load()
-    code = lib.flash_attention(
-        out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        0 if q.dtype == torch.float32 else 1, b, lq, valid, hq, hkv, d,
-        int(causal), _scale(d, scale),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
-        _build.stream_ptr(q.device))
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+               *out.stride()[:3])
+    sc = _scale(d, scale)
+    stream = _build.stream_ptr(q.device)
+    ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if route == "decode":
+        part = torch.empty(b * hkv * _nsplit(lk) * lq * (hq // hkv) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+        code = lib.flash_decode(
+            *ptrs, part.data_ptr(), 0 if q.dtype == torch.float32 else 1, b,
+            lq, lk, valid, hq, hkv, d, int(causal), sc, *strides, stream)
+    elif route == "mma":
+        code = lib.flash_attention_mma(*ptrs, b, lq, valid, hq, hkv, d,
+                                       int(causal), sc, *strides, stream)
+    else:
+        code = lib.flash_attention(*ptrs, 0, b, lq, valid, hq, hkv, d,
+                                   int(causal), sc, *strides, stream)
     _build.LAUNCHES["flash_attention"] += 1
+    _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] += 1
     if site is not None:
         _build.SITE_LAUNCHES[f"flash_attention/{site}"] += 1
-    _build.check(code, "flash_attention")
+    _build.check(code, f"flash_attention ({route})")
     return out

@@ -141,16 +141,29 @@ def _close(got, want, dtype):
     (1, 96, 160, 4, 4, 64, False, 150),        # not causal, padded keys
     (2, 1, 1016, 24, 8, 128, True, 1001),      # one decode step
     (1, 128, 128, 2, 1, 64, True, 64),         # first rows see no key
+    (1, 300, 300, 2, 2, 16, True, None),       # d = 16
+    (2, 77, 77, 6, 2, 64, True, None),         # 231 rows: not 64-aligned
+    (1, 100, 400, 6, 2, 128, True, None),      # Lq < Lk, g = 3
+    (1, 50, 50, 4, 1, 12, True, None),         # d = 12: unaligned rows
+    (2, 1, 1016, 24, 8, 128, True, 1),         # decode, one valid key
+    (2, 1, 1016, 24, 8, 128, True, 128),       # decode, two full splits
+    (2, 1, 1016, 24, 8, 128, True, 129),       # decode, one key into a third
+    (2, 1, 70, 4, 1, 12, True, 60),            # decode, d = 12, 4 rows
+    (1, 5, 40, 3, 1, 64, True, None),          # short prefill, 15 rows
 ])
 def test_cuda_flash_attention_matches_plain(cuda, dtype, b, lq, lk, hq, hkv,
                                             d, causal, lk_valid):
     q = _normal(1, b, lq, hq, d).to(cuda, dtype)
     k = _normal(2, b, lk, hkv, d).to(cuda, dtype)
     v = _normal(3, b, lk, hkv, d).to(cuda, dtype)
+    route = p_flash.flash_route(dtype, lq, hq // hkv)
+    key = f"flash_attention/route:{route}"
     before = _build.LAUNCHES["flash_attention"]
+    before_route = _build.SITE_LAUNCHES[key]
     got = p_flash.flash_attention(q, k, v, causal=causal, lk_valid=lk_valid)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["flash_attention"] == before + 1
+    assert _build.SITE_LAUNCHES[key] == before_route + 1
     assert got.dtype == dtype and torch.isfinite(got).all()
     want = p_flash.flash_attention_plain(q, k, v, causal=causal,
                                          lk_valid=lk_valid)
@@ -158,14 +171,21 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, b, lq, lk, hq, hkv,
 
 
 @pytest.mark.cuda
-def test_cuda_flash_attention_reads_a_cache_slice_in_place(cuda):
+@pytest.mark.parametrize("lq", [1, 40])
+def test_cuda_flash_attention_reads_a_cache_slice_in_place(cuda, lq):
     """A layer's [B, max_len, Hkv, D] slice of a stacked cache goes in as
-    a strided view, with q a view of a wider projection."""
+    a strided view, with q a view of a wider projection: route "decode"
+    (Lq = 1, 3 rows) and route "mma" (Lq = 40, 120 rows)."""
     cache = _normal(4, 3, 2, 80, 2, 64).to(cuda, torch.bfloat16)
-    proj = _normal(5, 2, 1, 2 * 6 * 64).to(cuda, torch.bfloat16)
-    q = proj[..., :6 * 64].view(2, 1, 6, 64)
+    proj = _normal(5, 2, lq, 2 * 6 * 64).to(cuda, torch.bfloat16)
+    q = proj[..., :6 * 64].view(2, lq, 6, 64)
     k, v = cache[1], cache[2]
+    route = p_flash.flash_route(torch.bfloat16, lq, 3)
+    assert route == ("decode" if lq == 1 else "mma")
+    before = _build.SITE_LAUNCHES[f"flash_attention/route:{route}"]
     got = p_flash.flash_attention(q, k, v, causal=True, lk_valid=57)
+    assert _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] == \
+        before + 1
     want = p_flash.flash_attention_plain(q.contiguous(), k.contiguous(),
                                          v.contiguous(), lk_valid=57)
     _close(got, want, torch.bfloat16)

@@ -72,7 +72,8 @@ def test_entry_points_raise_without_a_card(monkeypatch):
 def test_kernel_sources_and_bindings_agree():
     names = {p.name for p in _build.SOURCES}
     assert names == {"minplus.cu", "fw_pivot.cu", "ell.cu",
-                     "flash_attention.cu", "wkv.cu"}
+                     "flash_attention.cu", "flash_attention_mma.cu",
+                     "flash_decode.cu", "wkv.cu"}
     text = "".join(p.read_text() for p in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry

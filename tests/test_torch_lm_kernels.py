@@ -137,6 +137,108 @@ def test_flash_wrapper_checks_and_windowed_attention_raises():
         p_layers.attention(q, k, v, window=4)
 
 
+# K4 route "decode": the split-KV algebra (flash-decoding) in torch
+SPLIT = p_flash.DECODE_SPLIT
+
+
+@pytest.mark.parametrize("lk_valid", [1, 63, 64, 65, 127, 128, 129, 1001])
+@pytest.mark.parametrize("hq,hkv,d", [(2, 2, 16), (6, 2, 64), (24, 8, 128)])
+def test_split_plain_decode_matches_flash_plain_and_attention_decode(
+        lk_valid, hq, hkv, d):
+    """One decode step (Lq = 1) over a cache with at least one split wholly
+    past lk_valid: the split partials merged in order equal the one-pass
+    softmax and the reference's ``_attention_decode``; the splits past
+    lk_valid hold m = -1e30, l = 0."""
+    lk = SPLIT * (-(-lk_valid // SPLIT) + 1)
+    q, k, v = _qkv(lk_valid + d, 2, 1, lk, hq, hkv, d)
+    got = p_flash.flash_attention_split_plain(_t(q), _t(k), _t(v),
+                                              lk_valid=lk_valid).numpy()
+    want = p_flash.flash_attention_plain(_t(q), _t(k), _t(v),
+                                         lk_valid=lk_valid).numpy()
+    ref = np.asarray(r_tfm._attention_decode(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len=lk_valid,
+        q_offset=lk_valid - 1))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
+    acc, m, l = p_flash.flash_split_partials_plain(_t(q), _t(k), _t(v),
+                                                   lk_valid=lk_valid)
+    assert acc.shape == (2, hkv, lk // SPLIT, hq // hkv, d)
+    past = -(-lk_valid // SPLIT)      # first split wholly past lk_valid
+    assert past < lk // SPLIT
+    assert bool((m[:, :, past:] == p_flash.NEG).all())
+    assert bool((l[:, :, past:] == 0).all())
+    assert bool((l[:, :, :past] >= 1).all())   # the max's own term is 1
+
+
+@pytest.mark.parametrize("lq,hq,hkv,lk,lk_valid", [
+    (4, 4, 1, 64, 2),       # the first two queries see no key
+    (5, 3, 1, 200, 130),    # 15 rows, keys over three splits
+    (16, 2, 2, 64, 64),     # 16 rows, g = 1, one full split
+])
+def test_split_plain_short_prefill_matches_pallas(lq, hq, hkv, lk, lk_valid):
+    """Up to 16 rows of (query, group head) take route "decode" also at
+    prefill: the causal mask per row, rows that see no key give 0; against
+    the reference's Pallas kernel in interpret mode."""
+    q, k, v = _qkv(lq * lk, 1, lq, lk, hq, hkv, 16)
+    got = p_flash.flash_attention_split_plain(_t(q), _t(k), _t(v),
+                                              lk_valid=lk_valid).numpy()
+    pad = (-lk) % 64
+    kp, vp = (np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0))) for x in (k, v))
+    want = np.asarray(r_flash.flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), causal=True,
+        lk_valid=lk_valid, bq=lq, bk=64, interpret=True))
+    assert np.all(np.isfinite(got))
+    blind = max(0, lq - lk_valid)     # queries before the first valid key
+    assert np.array_equal(got[:, :blind], np.zeros_like(got[:, :blind]))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+def test_split_combine_skips_splits_that_saw_nothing():
+    """The combine never reads the acc of a split with l = 0 (the kernel
+    leaves it unwritten), and a row no split saw gives 0."""
+    rng = np.random.default_rng(3)
+    acc = torch.from_numpy(rng.standard_normal((1, 1, 3, 2, 4)).astype(
+        np.float32))
+    m = torch.tensor([[[[0.5, p_flash.NEG], [p_flash.NEG, p_flash.NEG],
+                        [2.0, p_flash.NEG]]]])
+    l = torch.tensor([[[[1.5, 0.0], [0.0, 0.0], [3.0, 0.0]]]])
+    acc[:, :, 1] = float("nan")
+    acc[:, :, :, 1] = float("nan")
+    got = p_flash.flash_split_combine_plain(acc, m, l)
+    w0, w2 = np.exp(0.5 - 2.0), 1.0
+    want = (w0 * acc[0, 0, 0, 0] + w2 * acc[0, 0, 2, 0]) / (w0 * 1.5 + 3.0)
+    torch.testing.assert_close(got[0, 0, 0], want)
+    assert torch.equal(got[0, 0, 1], torch.zeros(4))
+
+
+@pytest.mark.parametrize("dtype,lq,g,route", [
+    (torch.bfloat16, 1, 3, "decode"),      # minitron-4b decode step
+    (torch.float32, 1, 3, "decode"),
+    (torch.bfloat16, 1, 16, "decode"),     # 16 rows: still route B
+    (torch.bfloat16, 1, 48, "mma"),        # granite-20b (MQA) decode step
+    (torch.float32, 1, 48, "f32"),
+    (torch.bfloat16, 5, 3, "decode"),      # a short prefill, 15 rows
+    (torch.bfloat16, 6, 3, "mma"),         # 18 rows
+    (torch.bfloat16, 1000, 3, "mma"),      # minitron-4b prefill
+    (torch.float32, 1000, 3, "f32"),       # the float32 4-layer check
+])
+def test_flash_route_by_dtype_and_rows(dtype, lq, g, route):
+    assert p_flash.flash_route(dtype, lq, g) == route
+
+
+def test_decode_constants_match_kernel_sources():
+    """The wrapper sizes route B's scratch from DECODE_SPLIT and picks it up
+    to DECODE_ROWS rows: both must be the kernel's own constants."""
+    import re
+    src = (_build.SOURCES[0].parent / "flash_decode.cu").read_text()
+    const = dict(re.findall(r"constexpr int (\w+) = (\d+);", src))
+    assert int(const["SPLIT"]) == p_flash.DECODE_SPLIT
+    assert int(const["RMAX"]) == p_flash.DECODE_ROWS
+    assert int(const["DMAX"]) == p_flash.D_MAX
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in (
+        _build.SOURCES[0].parent / "flash_attention_mma.cu").read_text()
+
+
 # ---------------------------------------------------------------------------
 # K5: chunked WKV-6
 # ---------------------------------------------------------------------------
@@ -219,6 +321,9 @@ def test_cpu_tensors_never_launch_lm_kernels():
     q, k, v = (_t(x) for x in _qkv(1, 1, 16, 16, 2, 1, 16))
     p_ops.flash_attention(q, k, v, site="full")
     p_flash.flash_attention(q, k, v)
+    p_flash.flash_attention(q[:, :1], k, v, lk_valid=9)   # a decode shape
     p_ops.wkv_chunked(*map(_t, _wkv_inputs(2, 2, 40, 8)))
     assert _build.LAUNCHES == before
     assert "flash_attention/full" not in _build.SITE_LAUNCHES
+    assert not any(key.startswith("flash_attention/route:")
+                   for key in _build.SITE_LAUNCHES)
