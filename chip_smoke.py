@@ -12,7 +12,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    integer weights 1-16 over random-regular patterns with 1e18 non-edges:
    every result must match exactly; device times per call beside the
    bound (``time_ms``: CUDA events around 30 calls queued behind a device
-   sleep, so the host's launching is not timed; median of 3 batches);
+   sleep, so the host's launching is not timed; median of 3 batches), and
+   for K1 the instantiation the wrapper picked at each shape;
 3. main path, sparse — 20 seeds of RRG(512, 16) with 8 servers per switch
    (4,096 servers) under permutation traffic through
    ``get_engine("dual", tol=1e-4).solve_batch`` ("auto" resolves to
@@ -27,7 +28,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    B=8, L=1000, 24/8 heads, D=128, bf16: route "mma"; decode Lq=1,
    lk_valid=1001 over a cache of 1016, bf16: route "decode"; aligned
    L=1024 bf16: "mma"; the float32 prefill: route "f32") and K5
-   ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and without s0)
+   ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and without s0,
+   and the model's [8, 1000, 64, 64] projections as [B, H, T, n] views)
    against their plain versions on the card, within stated tolerances;
    device times beside the bound and, for K4, beside
    ``scaled_dot_product_attention`` (timed here only, as a yardstick),
@@ -179,6 +181,7 @@ def compare(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 def phase_kernels(graphs, kmin, kfw, kell, apsp_mod) -> dict[str, dict]:
     dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     w = torch.tensor(quantized_weights(512, 16, 20, 100, graphs), device=dev)
 
     def k1_case(label, a, b, c0):
@@ -192,6 +195,7 @@ def phase_kernels(graphs, kmin, kfw, kell, apsp_mod) -> dict[str, dict]:
                       + (2 if c0 is not None else 1) * bsz * m * n)
         bnd, kind = bound_ms(terms, nbytes)
         row = {"kernel": "minplus_acc", "shape": label,
+               "tile": kmin.minplus_tile(bsz, m, n, sms),
                "ms": time_ms(lambda: kmin.minplus_acc(a, b, c0)),
                "plain_ms": time_ms(lambda: kmin.minplus_acc_plain(a, b, c0)),
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
@@ -488,12 +492,25 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         del q, k, v, got, want, inputs
 
     bh, n = 512, 64
-    for key, t, with_s0 in (("T1000+s0", 1000, True), ("T1000", 1000, False),
-                            ("T1024", 1024, False), ("T1024+s0", 1024, True)):
-        r, k, v = (randn(bh, t, n) for _ in range(3))
-        log_w = -torch.clamp(torch.exp(randn(bh, t, n)), 1e-6, 2.5)
-        u = randn(bh, n) * 0.5
-        s0 = randn(bh, n, n) * 0.3 if with_s0 else None
+    for key, t, with_s0, heads in (
+            ("T1000+s0", 1000, True, False), ("T1000", 1000, False, False),
+            ("T1024", 1024, False, False), ("T1024+s0", 1024, True, False),
+            ("heads T1000", 1000, False, True)):
+        if heads:
+            # the model's layout: [8, T, 64, 64] projections handed over as
+            # [B, H, T, n] views, read in place; a per-head bonus [H, n]
+            lead = (8, bh // 8)
+            r, k, v = (randn(8, t, bh // 8, n).permute(0, 2, 1, 3)
+                       for _ in range(3))
+            log_w = -torch.clamp(torch.exp(randn(8, t, bh // 8, n)), 1e-6,
+                                 2.5).permute(0, 2, 1, 3)
+            u = randn(bh // 8, n) * 0.5
+        else:
+            lead = (bh,)
+            r, k, v = (randn(bh, t, n) for _ in range(3))
+            log_w = -torch.clamp(torch.exp(randn(bh, t, n)), 1e-6, 2.5)
+            u = randn(bh, n) * 0.5
+        s0 = randn(*lead, n, n) * 0.3 if with_s0 else None
         o, s = kwkv.wkv_chunked(r, k, v, log_w, u, s0)
         want_o, want_s = kwkv.wkv_chunked_plain(r, k, v, log_w, u, s0)
         err = max(close(f"K5 o {key}", o, want_o, K5_TOL),
@@ -503,11 +520,12 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         # read and update, the bonus term and decay bookkeeping
         flops = bh * (t / c) * (2 * c * (c - 1) * n + 4 * c * n * n
                                 + n * n + 10 * c * n)
-        nbytes = 4.0 * (5 * bh * t * n + bh * n + bh * n * n
+        nbytes = 4.0 * (5 * bh * t * n + u.numel() + bh * n * n
                         * (2 if with_s0 else 1))
         bnd, kind = flop_bound_ms(flops, FP32_FLOP_PER_S, nbytes)
-        row = {"kernel": "wkv_chunked",
-               "shape": f"[{bh},{t},{n}] f32" + (" + s0" if with_s0 else ""),
+        shape = (f"[8,{t},64,64] f32 as [B,H,T,n] views" if heads
+                 else f"[{bh},{t},{n}] f32") + (" + s0" if with_s0 else "")
+        row = {"kernel": "wkv_chunked", "shape": shape,
                "ms": time_ms(lambda: kwkv.wkv_chunked(r, k, v, log_w, u, s0)),
                "plain_ms": time_ms(lambda: kwkv.wkv_chunked_plain(
                    r, k, v, log_w, u, s0)),
@@ -888,7 +906,7 @@ def main() -> None:
                         "(_wkv_kernel :39)"),
     })
     timed["flash_attention"] = lm_timed["flash_attention/prefill"]
-    timed["wkv_chunked"] = lm_timed["wkv_chunked/T1000"]
+    timed["wkv_chunked"] = lm_timed["wkv_chunked/heads T1000"]
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timed[name]

@@ -48,7 +48,7 @@ _F = ctypes.c_float
 # C signatures of the kernel entries (argument types, all return int)
 _SIGNATURES = {
     "minplus_acc": (_P, _P, _P, _P, _I, _I, _I, _I,
-                    _L, _L, _L, _L, _L, _L, _L, _L, _P),
+                    _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
     "fw_pivot": (_P, _I, _I, _L, _L, _P),
     "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -57,7 +57,7 @@ _SIGNATURES = {
                             *(_L,) * 12, _P),
     "flash_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                      _F, *(_L,) * 12, _P),
-    "wkv_chunked": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _I, _I, _I, _P),
+    "wkv_chunked": (*(_P,) * 8, _I, _I, _I, _I, *(_L,) * 17, _P),
 }
 
 # the kernels K1-K5; K4's three C entries (its routes) all count under

@@ -16,15 +16,34 @@ version for CPU tensors.  There is no fallback between the two.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["SENTINEL", "minplus_matmul_ref", "minplus_acc_plain",
-           "minplus_acc"]
+__all__ = ["SENTINEL", "TILES", "minplus_tile", "minplus_matmul_ref",
+           "minplus_acc_plain", "minplus_acc"]
 
 SENTINEL = 3.0e38        # "+inf" stand-in that survives adds (accumulator init)
 _PLAIN_ELEMS = 1 << 26   # element budget of one broadcast slab of the plain version
+# K1's two instantiations, in the C entry's numbering: a 128x128 output
+# tile at 2 blocks an SM (<= 128 registers) or at 1 block an SM
+TILES = ("128x128 2/SM", "128x128 1/SM")
+
+
+def minplus_tile(batch: int, m: int, n: int, sms: int) -> str:
+    """The instantiation K1 takes for a [batch, m, *] x [batch, *, n]
+    product on a card with ``sms`` SMs: 2 blocks an SM where the grid has
+    more blocks than SMs, else 1 block an SM with more registers (the
+    narrow Floyd-Warshall panels: 80 blocks at [20, 128, 512])."""
+    blocks = batch * -(-m // 128) * -(-n // 128)
+    return TILES[0] if blocks > sms else TILES[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def minplus_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -82,7 +101,9 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
     views (row and lane strides, contiguous last axis).  ``out`` may be
     ``c0`` itself; it must not overlap ``a`` or ``b``.  CUDA tensors
     launch K1, CPU tensors run ``minplus_acc_plain``.  ``site`` names the
-    caller in ``_build.SITE_LAUNCHES`` (as ``"minplus_acc/<site>"``)."""
+    caller in ``_build.SITE_LAUNCHES`` (as ``"minplus_acc/<site>"``).
+    The build K1 runs is ``minplus_tile``'s choice; both give the same
+    bits."""
     if a.dim() != 3 or b.dim() != 3:
         raise ValueError(f"minplus_acc: batched 3-D operands required, got "
                          f"{tuple(a.shape)} and {tuple(b.shape)}")
@@ -109,6 +130,7 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
     for x in (b, out) + ((c0,) if c0 is not None else ()):
         if x.device != a.device:
             raise ValueError("minplus_acc: operands on different devices")
+    tile = minplus_tile(bsz, m, n, _sms(a.device))
     lib = _build.load()
     code = lib.minplus_acc(
         out.data_ptr(), c0.data_ptr() if c0 is not None else None,
@@ -116,7 +138,7 @@ def minplus_acc(a: torch.Tensor, b: torch.Tensor,
         a.stride(0), a.stride(1), b.stride(0), b.stride(1),
         out.stride(0), out.stride(1),
         c0.stride(0) if c0 is not None else 0,
-        c0.stride(1) if c0 is not None else 0,
+        c0.stride(1) if c0 is not None else 0, TILES.index(tile),
         _build.stream_ptr(a.device))
     _build.LAUNCHES["minplus_acc"] += 1
     if site is not None:

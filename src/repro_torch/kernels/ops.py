@@ -99,6 +99,7 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, u: torch.Tensor,
                 s0: torch.Tensor | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Chunked WKV-6 over [BH, T, n] from state ``s0``: ``(o, s_final)``
-    (K5 on the card; see ``repro_torch.kernels.wkv``)."""
+    """Chunked WKV-6 over [BH, T, n] or [B, H, T, n] (strided views
+    allowed) from state ``s0``: ``(o, s_final)`` (K5 on the card; see
+    ``repro_torch.kernels.wkv``)."""
     return _wkv.wkv_chunked(r, k, v, log_w, u, s0)

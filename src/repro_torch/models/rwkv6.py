@@ -113,14 +113,12 @@ def _rkvgw(cfg: ModelConfig, x, x_prev, lw):
 def _wkv_chunked(r, k, v, log_w, u, s0):
     """Chunked WKV over the [B, T, H, n] layout: r,k,v,log_w f32; u [H, n];
     s0 [B, H, n, n] or None (zero).  Returns (o [B,T,H,n], s_final).  The
-    heads are folded into the kernel's lanes ([B*H, T, n])."""
-    b, t, h, n = r.shape
-    lanes = [x.permute(0, 2, 1, 3).reshape(b * h, t, n)
-             for x in (r, k, v, log_w)]
-    uu = u.expand(b, h, n).reshape(b * h, n)
-    s_in = None if s0 is None else s0.reshape(b * h, n, n)
-    o, s = ops.wkv_chunked(*lanes, uu, s_in)
-    return o.reshape(b, h, t, n).permute(0, 2, 1, 3), s.reshape(b, h, n, n)
+    kernel takes (batch, head) as its lanes: the projections go in as
+    [B, H, T, n] views, read in place, and o comes back in the same
+    layout."""
+    o, s = ops.wkv_chunked(*(x.permute(0, 2, 1, 3) for x in (r, k, v, log_w)),
+                           u, s0)
+    return o.permute(0, 2, 1, 3), s
 
 
 def _wkv_step(r, k, v, log_w, u, s):

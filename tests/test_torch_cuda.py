@@ -55,6 +55,82 @@ def test_cuda_minplus_acc_matches_plain(cuda):
     assert _build.LAUNCHES["minplus_acc"] == before + 3
 
 
+def _sms(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", p_minplus.TILES)
+@pytest.mark.parametrize("m,n,k", [
+    (1, 1, 1), (127, 129, 200), (129, 127, 513), (200, 513, 127),
+    (513, 200, 129), (128, 512, 128),
+])
+def test_cuda_minplus_acc_each_tile_is_exact(cuda, tile, m, n, k):
+    """Both builds of K1 (a batch with more blocks than SMs takes the
+    first, a small one the second) on ragged m, n and k (scalar and float4
+    loads, sentinel edges), with and without C0: bit-equal to the plain
+    version, one launch counted per call."""
+    per_lane = -(-m // 128) * -(-n // 128)
+    bsz = _sms(cuda) // per_lane + 1 if tile == p_minplus.TILES[0] else 2
+    assert p_minplus.minplus_tile(bsz, m, n, _sms(cuda)) == tile
+    rng = np.random.default_rng(m * 7 + n * 3 + k)
+    a = torch.from_numpy(np.round(rng.uniform(0.5, 8.0, (bsz, m, k)) * 8)
+                         .astype(np.float32) / 8).to(cuda)
+    b = torch.from_numpy(np.round(rng.uniform(0.5, 8.0, (bsz, k, n)) * 8)
+                         .astype(np.float32) / 8).to(cuda)
+    c0 = torch.from_numpy(rng.uniform(0.0, 12.0, (bsz, m, n))
+                          .astype(np.float32)).to(cuda)
+    for c in (c0, None):
+        before = _build.LAUNCHES["minplus_acc"]
+        got = p_minplus.minplus_acc(a, b, c)
+        assert _build.LAUNCHES["minplus_acc"] == before + 1
+        assert torch.equal(got, p_minplus.minplus_acc_plain(a, b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", p_minplus.TILES)
+def test_cuda_minplus_acc_fw_panels_and_aliasing(cuda, tile):
+    """The three Floyd-Warshall panel products on strided views of one
+    [lanes, 384, 384] matrix, and ``out`` aliasing ``c0`` in place, with
+    enough lanes for each build of K1: bit-equal to the plain version."""
+    lanes = _sms(cuda) // 3 + 1 if tile == p_minplus.TILES[0] else 3
+    w = _lanes(384, lanes, p=0.1).to(cuda)
+    piv = w[:, 128:256, 128:256].clone()
+    row, col = w[:, 128:256, :], w[:, :, 128:256]
+    for a, b, c0 in ((piv, row, row), (col, piv, col), (col, row, w)):
+        assert p_minplus.minplus_tile(lanes, a.shape[1], b.shape[2],
+                                      _sms(cuda)) == tile
+        before = _build.LAUNCHES["minplus_acc"]
+        got = p_minplus.minplus_acc(a, b, c0)
+        assert _build.LAUNCHES["minplus_acc"] == before + 1
+        assert torch.equal(got, p_minplus.minplus_acc_plain(a, b, c0))
+    d = w.clone()
+    want = p_minplus.minplus_acc_plain(col.clone(), row.clone(), d)
+    out = p_minplus.minplus_acc(col.clone(), row.clone(), d, out=d)
+    assert out.data_ptr() == d.data_ptr() and torch.equal(d, want)
+    # a strided out view of a wider buffer: rows outside stay untouched
+    buf = w.clone()
+    view = buf[:, 128:256, :]
+    p_minplus.minplus_acc(piv, w[:, 128:256, :], view, out=view)
+    assert torch.equal(view, p_minplus.minplus_acc_plain(
+        piv, w[:, 128:256, :], w[:, 128:256, :]))
+    assert torch.equal(buf[:, :128], w[:, :128])
+    assert torch.equal(buf[:, 256:], w[:, 256:])
+
+
+def test_minplus_tile_by_shape():
+    """The instantiation the wrapper picks at the main path's shapes on 132
+    SMs: 2 blocks an SM for the 320-block square and outer products, 1 for
+    the 80-block panels."""
+    two, one = p_minplus.TILES
+    assert p_minplus.minplus_tile(20, 512, 512, 132) == two
+    assert p_minplus.minplus_tile(20, 128, 512, 132) == one
+    assert p_minplus.minplus_tile(20, 512, 128, 132) == one
+    assert p_minplus.minplus_tile(20, 200, 200, 132) == one
+    assert p_minplus.minplus_tile(33, 256, 256, 132) == one
+    assert p_minplus.minplus_tile(34, 256, 256, 132) == two
+
+
 @pytest.mark.cuda
 def test_cuda_fw_pivot_and_blocked_fw_match_plain(cuda):
     w = _lanes(256, 2, p=0.05).to(cuda)
@@ -211,6 +287,46 @@ def test_cuda_wkv_matches_plain(cuda, bh, t, n, with_state, lane_u):
     want_o, want_s = p_wkv.wkv_chunked_plain(r, k, v, log_w, u, s0)
     # the same chunked float32 algebra summed in another order; exponents
     # up to +-80 within a chunk scale the rounding of exp
+    torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(s, want_s, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,offset", [(12, 0), (16, 0), (32, 0), (64, 0),
+                                      (6, 0), (10, 0), (16, 1), (64, 1)])
+@pytest.mark.parametrize("t", [1, 31, 33, 70, 1000])
+def test_cuda_wkv_reads_strided_head_views(cuda, t, n, offset):
+    """[B, T, H, n] projections handed over as [B, H, T, n] views (the
+    model's layout), ragged T, a per-head bonus [H, n], with s0 at odd T:
+    within K5's tolerance of the plain version on contiguous copies, o in
+    r's memory layout, one launch counted.  n = 12 leaves channels of the
+    kernel's 16-wide tile empty.  n = 6 or 10 (rows an odd number of floats
+    apart) and views that start ``offset`` floats into a wider
+    [B, T, H, n + offset] buffer cannot be copied 16 bytes at a time: the
+    kernel then takes 4-byte copies and stores o one float at a time, and
+    o comes back packed as [B, T, H, n] where r has gaps."""
+    b, h = 2, 3
+
+    def view(x):
+        buf = torch.zeros(b, t, h, n + offset, device=cuda)
+        buf[..., offset:] = x.to(cuda)
+        return buf[..., offset:].permute(0, 2, 1, 3)
+
+    r, k, v = (view(_normal(s, b, t, h, n)) for s in (20, 21, 22))
+    log_w = view(-torch.clamp(torch.exp(_normal(23, b, t, h, n)), 1e-6, 2.5))
+    u = _normal(24, h, n).to(cuda) * 0.5
+    s0 = _normal(25, b, h, n, n).to(cuda) * 0.3 if t % 2 else None
+    before = _build.LAUNCHES["wkv_chunked"]
+    o, s = p_wkv.wkv_chunked(r, k, v, log_w, u, s0)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv_chunked"] == before + 1
+    assert o.shape == (b, h, t, n) and s.shape == (b, h, n, n)
+    assert o.permute(0, 2, 1, 3).is_contiguous()
+    if not offset:
+        assert o.stride() == r.stride()
+    want_o, want_s = p_wkv.wkv_chunked_plain(
+        *(x.contiguous() for x in (r, k, v, log_w)), u, s0)
+    # the same chunked float32 algebra summed in another order (see above)
     torch.testing.assert_close(o, want_o, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(s, want_s, atol=1e-4, rtol=1e-4)
 

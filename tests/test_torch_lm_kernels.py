@@ -293,6 +293,48 @@ def test_plain_wkv_with_state_matches_rwkv6_chunked(bh, t, n):
                                atol=1e-4, rtol=1e-4)
 
 
+@pytest.mark.parametrize("u_kind", ["shared", "head", "lane"])
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("t", [1, 31, 33, 45])
+def test_plain_wkv_on_head_views_matches_rwkv6_chunked(t, with_state, u_kind):
+    """``wkv_chunked_plain`` on strided [B, H, T, n] views of [B, T, H, n]
+    projections (the model's layout) with u [n], [H, n] or [B, H, n]:
+    against the reference's jnp ``_wkv_chunked`` on the projections,
+    T padded for it as its ``_time_mix`` pads it (per batch row where u
+    differs by row)."""
+    b, h, n = 2, 3, 8
+    rng = np.random.default_rng(100 * t + 7 * with_state + len(u_kind))
+    r, k, v = (rng.standard_normal((b, t, h, n)).astype(np.float32)
+               for _ in range(3))
+    log_w = -np.clip(np.exp(rng.standard_normal((b, t, h, n))), 1e-6,
+                     2.5).astype(np.float32)
+    u = (rng.standard_normal({"shared": (n,), "head": (h, n),
+                              "lane": (b, h, n)}[u_kind]) * 0.5
+         ).astype(np.float32)
+    s0 = (rng.standard_normal((b, h, n, n)) * 0.3).astype(np.float32) \
+        if with_state else None
+    views = [_t(x).permute(0, 2, 1, 3) for x in (r, k, v, log_w)]
+    got_o, got_s = p_wkv.wkv_chunked_plain(
+        *views, _t(u), None if s0 is None else _t(s0))
+    assert got_o.shape == (b, h, t, n) and got_s.shape == (b, h, n, n)
+    pad = (-t) % p_wkv.CHUNK
+    lay = [np.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0)))
+           for x in (r, k, v, log_w)]
+    s_in = s0 if with_state else np.zeros((b, h, n, n), np.float32)
+    uu = np.broadcast_to(u, (b, h, n))
+    for row in range(b):
+        want_o, want_s = r_rwkv6._wkv_chunked(
+            *(jnp.asarray(x[row:row + 1]) for x in lay), jnp.asarray(uu[row]),
+            jnp.asarray(s_in[row:row + 1]))
+        # the same chunked algebra, another summation order (see above)
+        np.testing.assert_allclose(
+            got_o[row].permute(1, 0, 2).numpy(), np.asarray(want_o)[0, :t],
+            atol=1e-4, rtol=1e-4)
+        np.testing.assert_allclose(got_s[row].numpy(),
+                                   np.asarray(want_s)[0], atol=1e-4,
+                                   rtol=1e-4)
+
+
 def test_model_wkv_folds_heads_into_lanes():
     """The port's ``rwkv6._wkv_chunked`` ([B, T, H, n] with u [H, n])
     equals the reference's on two batch rows of three heads."""

@@ -188,3 +188,37 @@ def test_serving_path_launches_no_kernel_on_cpu():
     p_serve.main(["--arch", "minitron-4b", "--smoke", "--device", "cpu",
                   "--batch", "2", "--prompt-len", "12", "--gen", "3"])
     assert _build.LAUNCHES == before
+
+
+def test_rwkv6_hands_wkv_views_of_the_projections(monkeypatch):
+    """The time mix hands ``ops.wkv_chunked`` the [B, T, H, n] projections
+    that ``_rkvgw`` returned as [B, H, T, n] views: each argument shares its
+    storage with the projection, no copy is made."""
+    from repro_torch.kernels import ops as p_ops
+    from repro_torch.models import rwkv6 as p_rwkv6
+
+    cfg = get_smoke("rwkv6-7b")
+    params = p_model.get_model(cfg, "cpu").init_params(0)
+    made, handed = [], []
+    rkvgw, wkv = p_rwkv6._rkvgw, p_ops.wkv_chunked
+
+    def spy_rkvgw(*args):
+        out = rkvgw(*args)
+        made.append(out)
+        return out
+
+    def spy_wkv(r, k, v, log_w, u, s0=None):
+        handed.append((r, k, v, log_w))
+        return wkv(r, k, v, log_w, u, s0)
+
+    monkeypatch.setattr(p_rwkv6, "_rkvgw", spy_rkvgw)
+    monkeypatch.setattr(p_ops, "wkv_chunked", spy_wkv)
+    p_model.get_model(cfg, "cpu").prefill(
+        params, {"tokens": torch.from_numpy(_tokens(cfg, 3, s=40))}, 44)
+    assert len(handed) == len(made) == cfg.num_layers
+    for (r, k, v, _g, log_w), args in zip(made, handed):
+        for proj, arg in zip((r, k, v, log_w), args):
+            assert arg.untyped_storage().data_ptr() == \
+                proj.untyped_storage().data_ptr()
+            assert arg.shape == (proj.shape[0], proj.shape[2],
+                                 proj.shape[1], proj.shape[3])
