@@ -13,14 +13,22 @@ Phases (any failure exits non-zero; no phase catches and continues):
    every result must match exactly; device times per call beside the
    bound (``time_ms``: CUDA events around 30 calls queued behind a device
    sleep, so the host's launching is not timed; median of 3 batches), and
-   for K1 the instantiation the wrapper picked at each shape;
+   for K1 the instantiation the wrapper picked at each shape; K2 at t = 128
+   and a ragged t = 100 and in place in a strided view, beside its
+   one-SM-a-lane floor (``lane_bound_ms``); K3 on route "slab" at
+   [20, 512, 512] and route "l2" at [2, 2048, 2048], flags too, each also
+   timed over 3 distinct carries in turn (``cold_ms``: more than the L2
+   holds, so the carry comes from device memory);
 3. main path, sparse — 20 seeds of RRG(512, 16) with 8 servers per switch
    (4,096 servers) under permutation traffic through
    ``get_engine("dual", tol=1e-4).solve_batch`` ("auto" resolves to
-   "ell-bf", so K3); bounds finite and positive, beside Theorem 1;
+   "ell-bf", so K3; every launch must take route "slab"); bounds finite and
+   positive, beside Theorem 1;
 4. main path, dense — 4 seeds of RRG(512, 48) with 16 servers per switch
-   ("auto" resolves to "blocked-fw": K1 + K2), then ``"dual-pallas"`` (K1)
-   against ``backend="ell-bf"`` on 4 phase-3 instances, within rel 1e-3;
+   ("auto" resolves to "blocked-fw": K1 + K2, 4 K2 launches a step; 10
+   profiled steps), then
+   ``"dual-pallas"`` (K1) against ``backend="ell-bf"`` (K3, route "slab") on
+   4 phase-3 instances, within rel 1e-3;
 5. oracle — 3 seeds of RRG(40, 10) with 5 servers per switch: the HiGHS
    optimum <= dual ub <= 1.05 x optimum at 800 iterations, and the card's
    ub within rel 1e-3 of the same solve on the CPU (plain versions);
@@ -214,34 +222,70 @@ def phase_kernels(graphs, kmin, kfw, kell, apsp_mod) -> dict[str, dict]:
     wr = w[:, :200, :200].contiguous()
     k1_case("ragged [20,200,200] x [20,200,200]", wr, wr, None)
 
-    # K2: pivot tiles read and written in place through strided views
-    got = kfw.fw_pivot(w[:, :128, :128].clone())
-    want = kfw.fw_tile_closure(w[:, :128, :128])
-    err2 = compare("K2 fw_pivot", got, want)
+    # K2: pivot tiles at blocked Floyd-Warshall's t = 128 and a ragged t = 100
+    # (masked micro-tiles), and one closed in place in a strided view
+    for t in (128, 100):
+        got = kfw.fw_pivot(w[:, :t, :t].clone())
+        err = compare(f"K2 fw_pivot t={t}", got, kfw.fw_tile_closure(
+            w[:, :t, :t]))
+        if t == 128:
+            err2 = err
+    d = w.clone()
+    kfw.fw_pivot(d[:, 128:256, 128:256])
+    compare("K2 fw_pivot in place", d[:, 128:256, 128:256],
+            kfw.fw_tile_closure(w[:, 128:256, 128:256]))
     tile = w[:, :128, :128].clone()
     bnd, kind = bound_ms(20 * 128 ** 3, 4 * 2 * 20 * 128 * 128)
     k2 = {"kernel": "fw_pivot", "shape": "[20,128,128]",
           "ms": time_ms(lambda: kfw.fw_pivot(tile)),
           "plain_ms": time_ms(lambda: kfw.fw_tile_closure(tile)),
-          "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err2,
-          "exact": True}
+          "bound_ms": bnd, "bound_kind": kind,
+          # one SM a lane: 2 t^3 instructions at one SM's share of the rate
+          "lane_bound_ms": 2.0 * 128 ** 3 * -(-20 // sms)
+          / (FP32_INSTR_PER_S / sms) * 1e3,
+          "ms_t100": time_ms(lambda: kfw.fw_pivot(tile[:, :100, :100])),
+          "max_abs_err": err2, "exact": True}
     log(json.dumps(k2))
 
-    # K3: one Jacobi round on the all-source carry, d_max = 16
+    # K3: one Jacobi round on the all-source carry, d_max = 16, on the route
+    # the shape picks (slab) and, at an N whose slab does not fit, route l2
+    from repro_torch.kernels import _build
+    k3 = {}
+    for key, n, lanes, wn in (("slab", 512, 20, w), ("l2", 2048, 2, None)):
+        if wn is None:
+            wn = torch.tensor(quantized_weights(n, 16, lanes, 200, graphs),
+                              device=dev)
+        idx, wgt = apsp_mod._pack_ell(wn, 16)
+        m = kell._full_init(idx, wgt)
+        route = kell.ell_route(n, 16)
+        before = _build.SITE_LAUNCHES[f"ell_relax_round/route:{key}"]
+        got_m, got_f = kell.ell_relax_round(m, idx, wgt)
+        if route != key or _build.SITE_LAUNCHES[
+                f"ell_relax_round/route:{key}"] != before + 1:
+            raise SystemExit(f"chip_smoke: K3 at N={n} did not take route "
+                             f"{key}")
+        want_m, want_f = kell.ell_relax_round_plain(m, idx, wgt)
+        err3 = compare(f"K3 ell_relax_round route {key}", got_m, want_m)
+        compare(f"K3 flags route {key}", got_f, want_f)
+        bnd, kind = bound_ms(lanes * n * n * 16,
+                             4 * 2 * lanes * n * n + 8 * lanes * n * 16)
+        # 3 distinct carries in turn (3 x 21 MB at N = 512, more than the
+        # 50 MB L2 holds), so each round reads its carry from device memory
+        carries = [m] + [m.clone() for _ in range(2)]
+        k3[key] = {
+            "kernel": "ell_relax_round", "route": key,
+            "shape": f"[{lanes},{n},{n}] d_max=16",
+            "ms": time_ms(lambda: kell.ell_relax_round(m, idx, wgt)),
+            "cold_ms": time_ms([functools.partial(kell.ell_relax_round, x,
+                                                  idx, wgt)
+                                for x in carries]),
+            "plain_ms": time_ms(lambda: kell.ell_relax_round_plain(m, idx,
+                                                                   wgt)),
+            "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err3,
+            "exact": True}
+        log(json.dumps(k3[key]))
+        del carries, got_m, want_m
     idx, wgt = apsp_mod._pack_ell(w, 16)
-    m = kell._full_init(idx, wgt)
-    got_m, got_f = kell.ell_relax_round(m, idx, wgt)
-    want_m, want_f = kell.ell_relax_round_plain(m, idx, wgt)
-    err3 = compare("K3 ell_relax_round", got_m, want_m)
-    compare("K3 flags", got_f, want_f)
-    bnd, kind = bound_ms(20 * 512 * 512 * 16,
-                         4 * 2 * 20 * 512 * 512 + 8 * 20 * 512 * 16)
-    k3 = {"kernel": "ell_relax_round", "shape": "[20,512,512] d_max=16",
-          "ms": time_ms(lambda: kell.ell_relax_round(m, idx, wgt)),
-          "plain_ms": time_ms(lambda: kell.ell_relax_round_plain(m, idx, wgt)),
-          "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err3,
-          "exact": True}
-    log(json.dumps(k3))
     # and the whole closure on the card against plain Floyd-Warshall
     d_ell, rounds = kell.ell_bf_apsp(idx, wgt)
     compare("ell-bf closure vs Floyd-Warshall", d_ell.contiguous(),
@@ -250,7 +294,8 @@ def phase_kernels(graphs, kmin, kfw, kell, apsp_mod) -> dict[str, dict]:
             kfw.fw_apsp_blocked(w), kfw.fw_apsp_plain(w))
     log(f"closures: ell-bf ({rounds} Jacobi rounds) == blocked-fw == plain "
         "Floyd-Warshall on [20,512,512]")
-    return {"minplus_acc": square, "fw_pivot": k2, "ell_relax_round": k3}
+    return {"minplus_acc": square, "fw_pivot": k2,
+            "ell_relax_round": dict(k3["slab"], shapes=k3)}
 
 
 def instances(graphs, traffic, n, deg, servers, seeds):
@@ -299,6 +344,21 @@ def run_path(name, engine, topos, dems, runs, need):
     return ubs
 
 
+def all_on_route(run: dict, kernel: str, route: str) -> None:
+    """Fail unless every launch of ``kernel`` in ``run`` took ``route``."""
+    if run["sites"].get(f"{kernel}/route:{route}", 0) != \
+            run["launches"][kernel]:
+        raise SystemExit(f"chip_smoke: {run['path']}: not every {kernel} "
+                         f"launch took route {route}: {run['sites']}")
+
+
+# the dual path's kernels by their CUDA names (K3 by route)
+PORT_KERNELS = {"K1 minplus_acc": "minplus_acc_kernel",
+                "K2 fw_pivot": "fw_pivot_kernel",
+                "K3 ell_relax_round slab": "ell_slab_kernel",
+                "K3 ell_relax_round l2": "ell_l2_kernel"}
+
+
 def profile_steps(engine, topos, dems) -> dict:
     """Device time of a short profiled solve: kernel time by name, kernel
     time inside the two halves of a descent step (the ``repro_torch.apsp``
@@ -327,11 +387,14 @@ def profile_steps(engine, topos, dems) -> dict:
     busy = sum(by_kernel.values())
     steps = max(r.meta["iterations"] for r in res) + 1
     top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    ours = {k: sum(ms for name, ms in by_kernel.items() if pat in name)
+            / steps for k, pat in PORT_KERNELS.items()}
     return {"steps": steps, "wall_ms": wall_ms,
             "wall_ms_per_step": wall_ms / steps,
             "kernel_ms": busy, "kernel_ms_per_step": busy / steps,
             "device_idle_share": (1 - busy / wall_ms) if busy else None,
             "range_kernel_ms": ranges,
+            "port_kernel_ms_per_step": {k: v for k, v in ours.items() if v},
             "top_kernels_ms": [[k[:70], ms] for k, ms in top]}
 
 
@@ -821,6 +884,7 @@ def main() -> None:
     eng = get_engine("dual", tol=1e-4)
     ubs = run_path("phase 3 dual auto->ell-bf RRG(512,16) x20", eng,
                    topos, dems, runs, ["ell_relax_round"])
+    all_on_route(runs[-1], "ell_relax_round", "slab")
     flows = float(np.mean([d.sum() for d in dems]))
     thm1 = bounds.throughput_upper_bound(512, 16, flows)
     log(json.dumps({"ub_mean": float(ubs.mean()), "theorem1": thm1,
@@ -836,12 +900,19 @@ def main() -> None:
     run_path("phase 4 dual auto->blocked-fw RRG(512,48) x4",
              get_engine("dual", iters=200), dtopos, ddems, runs,
              ["minplus_acc", "fw_pivot"])
+    if runs[-1]["launches"]["fw_pivot"] != 4 * runs[-1]["steps"]:
+        raise SystemExit("chip_smoke: blocked-fw at N=512 did not launch K2 "
+                         f"4 times a step: {runs[-1]}")
+    log(json.dumps({"profile": "phase 4 blocked-fw shape, 10 steps",
+                    **profile_steps(get_engine("dual", iters=10), dtopos,
+                                    ddems)}))
     pal = run_path("phase 4 dual-pallas RRG(512,16) x4",
                    get_engine("dual-pallas", iters=200), topos[:4],
                    dems[:4], runs, ["minplus_acc"])
     ell = run_path("phase 4 dual ell-bf RRG(512,16) x4",
                    get_engine("dual", iters=200, backend="ell-bf"),
                    topos[:4], dems[:4], runs, ["ell_relax_round"])
+    all_on_route(runs[-1], "ell_relax_round", "slab")
     rel = np.abs(pal / ell - 1)
     log(json.dumps({"dual_pallas_vs_ell_bf_rel": rel.tolist()}))
     if not rel.max() <= 1e-3:
@@ -933,6 +1004,10 @@ def main() -> None:
             "bound_ms": t["bound_ms"], "bound_by": t["bound_kind"],
             "library_ms": t.get("library_ms"), "shape": t.get("shape"),
             "card": card}
+        entry.update({k: t[k] for k in ("lane_bound_ms", "cold_ms") if k in t})
+        if name == "ell_relax_round":
+            entry["k3_route"] = t["route"]
+            entry["shapes"] = t["shapes"]
         if name in ("flash_attention", "wkv_chunked"):
             entry["tolerance"] = t["tolerance"]
             entry["shapes"] = {k.split("/", 1)[1]: {

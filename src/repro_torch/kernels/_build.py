@@ -12,8 +12,8 @@ fallback.
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made, and
 ``SITE_LAUNCHES`` splits them by the caller that names itself (the blocked
 Floyd-Warshall panels, the full-sequence and the decode attention) and, for
-K4, by route (``flash_attention/route:mma``, ``route:decode``,
-``route:f32``); a run
+K3 and K4, by route (``ell_relax_round/route:slab``, ``route:l2``;
+``flash_attention/route:mma``, ``route:decode``, ``route:f32``); a run
 resets both with ``reset_launches`` and reads them afterwards to show which
 kernels the path went through.
 """
@@ -50,7 +50,7 @@ _SIGNATURES = {
     "minplus_acc": (_P, _P, _P, _P, _I, _I, _I, _I,
                     _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
     "fw_pivot": (_P, _I, _I, _L, _L, _P),
-    "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F,
                         *(_L,) * 12, _P),
     "flash_attention_mma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,

@@ -17,7 +17,13 @@ only against a Jacobi schedule.
 K3 ``ell_relax_round`` (``csrc/ell.cu``) replaces the reference's TPU kernel
 ``_relax_round_kernel``; it is bound by memory (one read and one write of
 the carry per round, 2*d_max instructions per element); see the source
-note.  ``ell_relax_round`` picks by device: the kernel for CUDA tensors,
+note.  On the card it takes one of two routes, picked by ``ell_route``
+from the shared memory the shape needs, never by a failure: ``slab`` copies
+an (N x SPAN) slab of one lane's carry into shared memory and gathers the
+predecessor rows from there (N up to 1,792 at d_max <= 64); ``l2``
+gathers them from device memory (L2).  Each launch counts under
+``ell_relax_round/route:<route>`` in ``_build.SITE_LAUNCHES``.
+``ell_relax_round`` picks by device: the kernel for CUDA tensors,
 ``ell_relax_round_plain`` for CPU tensors.
 """
 from __future__ import annotations
@@ -27,12 +33,35 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["ell_relax_round", "ell_relax_round_plain", "ell_bf_apsp",
-           "TILE", "SPAN"]
+           "ell_route", "ROUTES", "TILE", "SPAN"]
 
 _INF = 1.0e18   # == repro_torch.core.apsp._INF (non-edge sentinel)
-TILE = 8        # targets per changed flag (K3's block tile)
-SPAN = 128      # sources per changed flag (K3's block span)
+TILE = 8        # targets per changed flag (a warp's tile of targets)
+SPAN = 32       # sources per changed flag (a warp's lanes)
+ROUTES = ("slab", "l2")   # K3's routes, in the C entry's numbering
+_SLAB_WARPS = 8           # warps per block of route slab
+_SLAB_MAX_D = 64          # longest table row route slab takes
+_SMEM_MAX = 232448        # shared memory one block may take on sm_90
 _ERR_PATCH = -1  # K3's return code when TILE/SPAN differ from the source's
+_ERR_ROUTE = -2  # K3's return code when the slab does not fit
+
+
+def _slab_bytes(n: int, d: int) -> int:
+    """Shared memory of route ``slab``: the [N, SPAN] carry slab and each
+    warp's table stage of ``g`` target rows padded to 8 slots, a 4-byte
+    weight and a 2-byte row offset a slot (``slab_smem`` in
+    ``csrc/ell.cu``)."""
+    dp = max(8, -(-d // 8) * 8)
+    g = min(TILE, 64 // dp)
+    return 4 * n * SPAN + 6 * _SLAB_WARPS * g * dp
+
+
+def ell_route(n: int, d: int) -> str:
+    """The route K3 takes on the card for N targets and d_max slots:
+    ``slab`` for rows of up to ``_SLAB_MAX_D`` slots where the slab and
+    the table stages fit one block's shared memory, else ``l2``."""
+    fits = d <= _SLAB_MAX_D and _slab_bytes(n, d) <= _SMEM_MAX
+    return "slab" if fits else "l2"
 
 
 def _check_tables(m: torch.Tensor, idx: torch.Tensor,
@@ -52,13 +81,14 @@ def _check_tables(m: torch.Tensor, idx: torch.Tensor,
     return bsz, n, m.shape[2], d
 
 
-def _block_flags(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
-    """Changed flags per (lane, TILE targets, SPAN sources) patch."""
+def _block_flags(new: torch.Tensor, old: torch.Tensor,
+                 span: int = SPAN) -> torch.Tensor:
+    """Changed flags per (lane, TILE targets, ``span`` sources) patch."""
     bsz, n, s = new.shape
     ch = (new < old)
-    nt, ns = -(-n // TILE), -(-s // SPAN)
-    ch = torch.nn.functional.pad(ch, (0, ns * SPAN - s, 0, nt * TILE - n))
-    return ch.reshape(bsz, nt, TILE, ns, SPAN).any(dim=4).any(dim=2)
+    nt, ns = -(-n // TILE), -(-s // span)
+    ch = torch.nn.functional.pad(ch, (0, ns * span - s, 0, nt * TILE - n))
+    return ch.reshape(bsz, nt, TILE, ns, span).any(dim=4).any(dim=2)
 
 
 def ell_relax_round_plain(m: torch.Tensor, idx: torch.Tensor,
@@ -77,8 +107,9 @@ def ell_relax_round_plain(m: torch.Tensor, idx: torch.Tensor,
 def ell_relax_round(m: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """One Jacobi relaxation round into a new carry, plus one changed flag
-    per (lane, TILE targets, SPAN sources) patch.  CUDA tensors launch K3,
-    CPU tensors run ``ell_relax_round_plain``."""
+    per (lane, TILE targets, SPAN sources) patch.  CUDA tensors launch K3
+    on the route ``ell_route`` picks, CPU tensors run
+    ``ell_relax_round_plain``; both give the same bits."""
     if not m.is_cuda:
         return ell_relax_round_plain(m, idx, wgt)
     bsz, n, s, d = _check_tables(m, idx, wgt)
@@ -87,20 +118,23 @@ def ell_relax_round(m: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor
             raise ValueError("ell_relax_round: contiguous tensors required")
         if x.device != m.device:
             raise ValueError("ell_relax_round: tensors on different devices")
+    route = ell_route(n, d)
     lib = _build.load()
     out = torch.empty_like(m)
     flags = torch.empty((bsz, -(-n // TILE), -(-s // SPAN)),
-                        dtype=torch.int32, device=m.device)
+                        dtype=torch.bool, device=m.device)
     code = lib.ell_relax_round(out.data_ptr(), flags.data_ptr(),
                                m.data_ptr(), idx.data_ptr(), wgt.data_ptr(),
-                               bsz, n, s, d, TILE, SPAN,
+                               bsz, n, s, d, TILE, SPAN, ROUTES.index(route),
                                _build.stream_ptr(m.device))
-    if code == _ERR_PATCH:
+    if code in (_ERR_PATCH, _ERR_ROUTE):
         raise RuntimeError("csrc/ell.cu and kernels/ell.py disagree on the "
-                           "flag patch size")
+                           f"flag patch or on route {route!r} at N={n}, "
+                           f"d_max={d}")
     _build.LAUNCHES["ell_relax_round"] += 1
+    _build.SITE_LAUNCHES[f"ell_relax_round/route:{route}"] += 1
     _build.check(code, "ell_relax_round")
-    return out, flags.bool()
+    return out, flags
 
 
 def _full_init(idx: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:

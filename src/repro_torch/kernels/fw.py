@@ -14,8 +14,10 @@ Phases 2-4 applied to the pivot row/col/block itself are idempotent (``P``
 has a zero diagonal and is min-plus closed), so no masking is needed.
 
 K2 ``fw_pivot`` replaces the reference's ``_pivot_kernel``; it is bound by
-the latency of ``t`` sequential barrier-separated passes over one tile in
-shared memory (see the note in ``csrc/fw_pivot.cu``).  ``fw_pivot`` and
+the latency of ``t`` sequential steps over one tile on one SM: the tile
+stays in registers, row and column k go through shared memory, one
+barrier a pivot (see the note in ``csrc/fw_pivot.cu``).  On the card it
+takes tiles up to ``FW_TILE``.  ``fw_pivot`` and
 ``minplus_acc`` pick by device: the kernel for CUDA tensors, the plain
 version for CPU tensors.
 
@@ -35,7 +37,7 @@ from repro_torch.kernels.minplus import minplus_acc
 __all__ = ["fw_tile_closure", "fw_pivot", "fw_apsp_blocked", "fw_apsp_plain",
            "FW_TILE"]
 
-FW_TILE = 128   # pivot tile of the blocked driver on the card (64 KB of shared memory)
+FW_TILE = 128   # pivot tile of fw_apsp_blocked; K2's largest tile on the card
 
 
 def fw_tile_closure(d: torch.Tensor) -> torch.Tensor:
@@ -51,7 +53,8 @@ def fw_tile_closure(d: torch.Tensor) -> torch.Tensor:
 def fw_pivot(d: torch.Tensor) -> torch.Tensor:
     """Close every [t, t] tile of ``d`` [B, t, t] IN PLACE and return it.
     ``d`` may be a strided view (row and lane strides, contiguous last
-    axis).  CUDA tensors launch K2, CPU tensors run ``fw_tile_closure``."""
+    axis).  CUDA tensors launch K2 (t <= ``FW_TILE``), CPU tensors run
+    ``fw_tile_closure``."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"fw_pivot: [B, t, t] tiles required, got "
                          f"{tuple(d.shape)}")
@@ -61,8 +64,9 @@ def fw_pivot(d: torch.Tensor) -> torch.Tensor:
         d.copy_(fw_tile_closure(d))
         return d
     bsz, t, _ = d.shape
-    if t * t * 4 > 227 * 1024:
-        raise ValueError(f"fw_pivot: a {t}x{t} tile exceeds shared memory")
+    if t > FW_TILE:
+        raise ValueError(f"fw_pivot: tiles up to {FW_TILE}x{FW_TILE} on the "
+                         f"card (FW_TILE), got {t}x{t}")
     if d.stride(2) != 1:
         raise ValueError("fw_pivot: needs a contiguous last axis")
     lib = _build.load()

@@ -141,6 +141,36 @@ def test_cuda_fw_pivot_and_blocked_fw_match_plain(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", [1, 8, 100, 128])
+def test_cuda_fw_pivot_each_tile_size_is_exact(cuda, t):
+    """K2 at blocked Floyd-Warshall's t = 128 and at smaller tiles (masked
+    micro-tiles), on a contiguous batch and in place in a strided view that
+    starts off the diagonal and off a 16-byte boundary of a wider matrix:
+    bit-equal to ``fw_tile_closure``, the rest of the matrix untouched, one
+    launch a call."""
+    w = _lanes(t + 37, 3, p=0.1).to(cuda)
+    before = _build.LAUNCHES["fw_pivot"]
+    tiles = w[:, :t, :t].clone()
+    assert torch.equal(p_fw.fw_pivot(tiles.clone()),
+                       p_fw.fw_tile_closure(tiles))
+    d = w.clone()
+    p_fw.fw_pivot(d[:, 5:5 + t, 9:9 + t])
+    assert torch.equal(d[:, 5:5 + t, 9:9 + t],
+                       p_fw.fw_tile_closure(w[:, 5:5 + t, 9:9 + t]))
+    d[:, 5:5 + t, 9:9 + t] = w[:, 5:5 + t, 9:9 + t]
+    assert torch.equal(d, w)
+    assert _build.LAUNCHES["fw_pivot"] == before + 2
+
+
+@pytest.mark.cuda
+def test_cuda_fw_pivot_refuses_tiles_over_128(cuda):
+    before = _build.LAUNCHES["fw_pivot"]
+    with pytest.raises(ValueError, match="FW_TILE"):
+        p_fw.fw_pivot(torch.zeros(2, 129, 129, device=cuda))
+    assert _build.LAUNCHES["fw_pivot"] == before
+
+
+@pytest.mark.cuda
 def test_cuda_blocked_fw_counts_each_panel(cuda):
     w = _lanes(384, 2, p=0.05).to(cuda)
     _build.reset_launches()
@@ -169,7 +199,79 @@ def test_cuda_ell_round_matches_plain(cuda):
     got = p_ell.ell_relax_round(m, idx, wgt)
     want = p_ell.ell_relax_round_plain(m, idx, wgt)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    d, _ = p_ell.ell_bf_apsp(idx, wgt)
+    _build.reset_launches()
+    d, rounds = p_ell.ell_bf_apsp(idx, wgt)
+    assert _build.SITE_LAUNCHES["ell_relax_round/route:slab"] == rounds
+    assert torch.equal(d.contiguous(), p_fw.fw_apsp_plain(w))
+
+
+def test_ell_route_by_shape():
+    """K3's route: ``slab`` while the [N, 32] carry slab and the table
+    stages (3 KB) fit a block's 227 KB of shared memory, i.e. N <= 1,792,
+    and rows have at most 64 slots, else ``l2``."""
+    assert p_ell.ell_route(512, 16) == "slab"     # the main path
+    assert p_ell.ell_route(1024, 16) == "slab"
+    assert p_ell.ell_route(1792, 16) == "slab"
+    assert p_ell.ell_route(1793, 16) == "l2"
+    assert p_ell.ell_route(2048, 16) == "l2"
+    for d in (1, 16, 32):
+        assert p_ell.ell_route(300, d) == "slab"
+        assert p_ell.ell_route(1800, d) == "l2"
+    assert p_ell.ell_route(512, 64) == "slab"
+    assert p_ell.ell_route(512, 65) == "l2"
+
+
+def _ell_tables(bsz, n, s, d, seed, device):
+    """Random ELL tables (10% of slots padded with _INF) and a carry of
+    quantized lengths with 30% _INF, [bsz, n, s]."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n, (bsz, n, d)).astype(np.int32)
+    wgt = (np.round(rng.uniform(0.5, 8.0, (bsz, n, d)) * 8) / 8).astype(
+        np.float32)
+    wgt[rng.random((bsz, n, d)) < 0.1] = _INF
+    m = (np.round(rng.uniform(0.0, 40.0, (bsz, n, s)) * 8) / 8).astype(
+        np.float32)
+    m[rng.random((bsz, n, s)) < 0.3] = _INF
+    return tuple(torch.from_numpy(x).to(device) for x in (m, idx, wgt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [1, 16, 32])
+@pytest.mark.parametrize("route,n,s", [
+    ("slab", 300, 77),    # S ragged and not a multiple of 4: 4-byte copies
+    ("slab", 37, 300),    # N ragged against the 8-target tile
+    ("slab", 512, 512),   # the main path's shape
+    ("slab", 1792, 40),   # the largest slab
+    ("l2", 1800, 77),
+    ("l2", 1800, 45),
+])
+def test_cuda_ell_round_each_route_is_exact(cuda, route, n, s, d):
+    """K3 on each route, at ragged N and S and d_max 1, 16 and 32: the new
+    carry and every (8 targets x 32 sources) flag equal the plain
+    version's, one launch counted on the route."""
+    assert p_ell.ell_route(n, d) == route
+    m, idx, wgt = _ell_tables(2, n, s, d, n + s + d, cuda)
+    key = f"ell_relax_round/route:{route}"
+    before = _build.SITE_LAUNCHES[key]
+    got_m, got_f = p_ell.ell_relax_round(m, idx, wgt)
+    assert _build.SITE_LAUNCHES[key] == before + 1
+    want_m, want_f = p_ell.ell_relax_round_plain(m, idx, wgt)
+    assert got_f.shape == (2, -(-n // 8), -(-s // 32))
+    assert torch.equal(got_m, want_m) and torch.equal(got_f, want_f)
+
+
+@pytest.mark.cuda
+def test_cuda_ell_bf_closure_on_route_l2(cuda):
+    """At N = 1800 every Jacobi round takes route l2 and the closure equals
+    plain Floyd-Warshall (route slab: ``test_cuda_ell_round_matches_plain``)."""
+    w = _lanes(1800, 1, p=0.006).to(cuda)
+    d_max = int(((w < _INF / 2).sum(dim=1) - 1).max())
+    assert p_ell.ell_route(1800, d_max) == "l2"
+    idx, wgt = p_apsp._pack_ell(w, d_max)
+    _build.reset_launches()
+    d, rounds = p_ell.ell_bf_apsp(idx, wgt)
+    assert _build.SITE_LAUNCHES["ell_relax_round/route:l2"] == rounds
+    assert _build.LAUNCHES["ell_relax_round"] == rounds
     assert torch.equal(d.contiguous(), p_fw.fw_apsp_plain(w))
 
 

@@ -214,6 +214,31 @@ def test_plain_ell_round_bit_equal_to_pallas_round():
     assert torch.equal(wm, got_m) and torch.equal(wf, got_flags)
 
 
+@pytest.mark.parametrize("n,s", [(40, 13), (40, 45), (64, 33)])
+def test_plain_ell_flags_on_ragged_sources_match_pallas_tiles(n, s):
+    """A carry of S sources that is not a multiple of SPAN: the plain round
+    equals the reference's Pallas round, and its flags, one per (TILE
+    targets, SPAN sources) patch with the last span ragged, OR over the
+    spans to the reference's per-tile flags and equal each patch's own
+    change."""
+    _, idx, wgt = _ell_case(n, s)
+    m = p_ell._full_init(idx, wgt)[:, :, :s].contiguous()
+    ref_m, ref_flags = r_ell.ell_relax_round_pallas(
+        jnp.asarray(m[0].numpy()), jnp.asarray(idx[0].numpy()),
+        jnp.asarray(wgt[0].numpy()), tile=p_ell.TILE, interpret=True)
+    got_m, got_flags = p_ell.ell_relax_round_plain(m, idx, wgt)
+    assert np.array_equal(got_m[0].numpy(), np.asarray(ref_m))
+    nt, ns = n // p_ell.TILE, -(-s // p_ell.SPAN)
+    assert got_flags.shape == (1, nt, ns)
+    assert np.array_equal(got_flags[0].any(dim=1).numpy(),
+                          np.asarray(ref_flags))
+    ch = (got_m < m)[0].numpy()
+    t, sp = p_ell.TILE, p_ell.SPAN
+    want = [[ch[i * t:(i + 1) * t, j * sp:(j + 1) * sp].any()
+             for j in range(ns)] for i in range(nt)]
+    assert np.array_equal(got_flags[0].numpy(), np.array(want))
+
+
 def test_ell_init_matches_reference_and_rounds_are_jacobi():
     w, idx, wgt = _ell_case(27, 2)     # ragged against TILE
     m0 = p_ell._full_init(idx, wgt)[0].numpy()
