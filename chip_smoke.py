@@ -54,12 +54,32 @@ Phases (any failure exits non-zero; no phase catches and continues):
    bf16 attention is shown to fail; then a profiled prefill and four
    profiled decode steps (device time by kernel group, idle share);
 8. rwkv6-7b, the same (K5 at prefill, the plain one-token step at decode);
-9. summary — one JSON line with every kernel, then the device line last.
+9. the certified path — (a) phase 5's Fig. 1 point through
+   ``get_engine("certified", iters=800)`` (K1): lb <= HiGHS optimum <= ub,
+   gap < 5%, and the card's lb and ub within rel 1e-3 of the same solve on
+   the CPU; (b) phase 3's 20 instances through ``get_engine("certified",
+   tol=1e-4).solve_batch`` (K3, every launch on route "slab"): 0 < lb <=
+   ub <= Theorem 1 on every lane, each lane's gap and iterations, ms a
+   step, instances/s, K3 launches a step; then 10 profiled steps (device
+   ms of the APSP forward, the SP-DAG backward, the FW line search and the
+   rest, idle share);
+10. the figure layer — ``repro_torch.launch.figures.fig5`` at paper scale
+   (3 configurations x 6 biases x 10 runs = 180 instances of 40-60 switches,
+   one BatchPlan, certified engine at tol 1e-4: K1 squaring); the first
+   run of every point (18 instances) held against HiGHS (lb <= θ <= ub),
+   whose LPs run in worker processes after the card's run; then 10
+   profiled steps of the same plan, split as in 9b;
+11. summary — one JSON line with every kernel, then the device line last.
+
+Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
+and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
+Floyd-Warshall.
 
 Launch counts are reset just before each path's run (phase 3's, each of
-phase 4's three, and each ``generate`` of phases 7-8) and read just after
-it; a kernel of a path that was not launched fails the run.  The summary reports every path's own counts,
-never a sum over runs: ``launches`` of a kernel is from the first path
+phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
+solves and phase 10's figure) and read just after it; a kernel of a path
+that was not launched fails the run.  The summary reports every path's own
+counts, never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
 ``paths`` lists each run that launched it, with K1's launches in the
 blocked-fw run split by panel (row, column, outer) and K4's split into
@@ -75,6 +95,7 @@ import dataclasses
 import functools
 import gc
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -234,6 +255,14 @@ def phase_kernels(graphs, kmin, kfw, kell, apsp_mod) -> dict[str, dict]:
     kfw.fw_pivot(d[:, 128:256, 128:256])
     compare("K2 fw_pivot in place", d[:, 128:256, 128:256],
             kfw.fw_tile_closure(w[:, 128:256, 128:256]))
+    # tiles wider than K2's 128: padded to 256 and closed blocked (K2 + K1)
+    for t in (129, 200, 256):
+        compare(f"K2 fw_pivot wide t={t}", kfw.fw_pivot(w[:, :t, :t].clone()),
+                kfw.fw_apsp_plain(w[:, :t, :t]))
+    compare("blocked-fw t=256 closure vs Floyd-Warshall",
+            kfw.fw_apsp_blocked(w, t=256), kfw.fw_apsp_plain(w))
+    log("K2 wide tiles t=129/200/256 and blocked-fw t=256 == plain "
+        "Floyd-Warshall")
     tile = w[:, :128, :128].clone()
     bnd, kind = bound_ms(20 * 128 ** 3, 4 * 2 * 20 * 128 * 128)
     k2 = {"kernel": "fw_pivot", "shape": "[20,128,128]",
@@ -329,7 +358,7 @@ def run_path(name, engine, topos, dems, runs, need):
                     if r.meta["chunk"] == c) + 1
                 for c in range(res[0].meta["chunks"]))
     runs.append({"path": name, "launches": counts, "sites": sites,
-                 "steps": steps})
+                 "steps": steps, "wall_s": wall, "results": res})
     ubs = np.array([r.throughput for r in res])
     if not np.all(np.isfinite(ubs) & (ubs > 0)):
         raise SystemExit(f"chip_smoke: {name} bounds not finite/positive: "
@@ -396,6 +425,179 @@ def profile_steps(engine, topos, dems) -> dict:
             "range_kernel_ms": ranges,
             "port_kernel_ms_per_step": {k: v for k, v in ours.items() if v},
             "top_kernels_ms": [[k[:70], ms] for k, ms in top]}
+
+
+# ---------------------------------------------------------------------------
+# the certified path and the figure layer (phases 9-10)
+# ---------------------------------------------------------------------------
+
+def check_brackets(name, res, theta=None) -> tuple[np.ndarray, np.ndarray]:
+    """Per-lane (lb, ub) of bracket results; fails unless 0 < lb <= ub and,
+    where the LP optimum is given, lb <= θ <= ub (rel 1e-6)."""
+    lb = np.array([r.meta["lb"] for r in res])
+    ub = np.array([r.meta["ub"] for r in res])
+    if not np.all(np.isfinite(ub) & (lb > 0) & (lb <= ub)):
+        raise SystemExit(f"chip_smoke: {name}: not 0 < lb <= ub: {lb} {ub}")
+    if theta is not None and not np.all(
+            (lb <= theta * (1 + 1e-6)) & (theta <= ub * (1 + 1e-6))):
+        raise SystemExit(f"chip_smoke: {name}: the bracket misses the LP "
+                         f"optimum: lb {lb}, theta {theta}, ub {ub}")
+    return lb, ub
+
+
+def profile_certified(engine, topos, dems) -> dict:
+    """``profile_steps`` of a certified solve, with the device ms a step of
+    the APSP forward, the SP-DAG backward, the FW line search and the rest
+    of the step (line search included)."""
+    prof = profile_steps(engine, topos, dems)
+    ranges, steps = prof["range_kernel_ms"], prof["steps"]
+    fwd = ranges.get("repro_torch.apsp.forward", 0.0)
+    bwd = ranges.get("repro_torch.apsp.backward", 0.0)
+    return {**prof, "forward_ms_per_step": fwd / steps,
+            "backward_ms_per_step": bwd / steps,
+            "line_search_ms_per_step":
+                ranges.get("repro_torch.primal.line_search", 0.0) / steps,
+            "other_ms_per_step": (prof["kernel_ms"] - fwd - bwd) / steps}
+
+
+def phase_certified(get_engine, bounds, topos, dems, otopos, odems, exact,
+                    runs) -> dict:
+    """Phase 9: (a) the Fig. 1 point through the certified engine, against
+    HiGHS and against the same solve on the CPU; (b) phase 3's 20
+    instances at full size (K3 on route slab), then 10 profiled steps."""
+    t0 = time.perf_counter()
+    run_path("phase 9a certified squaring RRG(40,10) x3",
+             get_engine("certified", iters=800), otopos, odems, runs,
+             ["minplus_acc"])
+    card = runs[-1]["results"]
+    cpu = get_engine("certified", iters=800, device="cpu").solve_batch(
+        otopos, odems)
+    lb, ub = check_brackets("phase 9a", card, exact)
+    lb_cpu, ub_cpu = check_brackets("phase 9a on the CPU", cpu, exact)
+    gaps = (ub - lb) / ub
+    rel = np.concatenate([np.abs(lb / lb_cpu - 1), np.abs(ub / ub_cpu - 1)])
+    a = {"theta_exact": exact.tolist(), "lb_card": lb.tolist(),
+         "ub_card": ub.tolist(), "lb_cpu": lb_cpu.tolist(),
+         "ub_cpu": ub_cpu.tolist(), "gap": gaps.tolist(),
+         "card_vs_cpu_rel_max": float(rel.max()),
+         "seconds": time.perf_counter() - t0}
+    log(json.dumps({"phase": "9a", **a}))
+    if not gaps.max() < 0.05:
+        raise SystemExit(f"chip_smoke: phase 9a gap >= 5%: {gaps}")
+    if not rel.max() <= 1e-3:
+        raise SystemExit("chip_smoke: phase 9a card and CPU brackets "
+                         f"disagree: {rel}")
+
+    t0 = time.perf_counter()
+    name = "phase 9b certified auto->ell-bf RRG(512,16) x20"
+    run_path(name, get_engine("certified", tol=1e-4), topos, dems, runs,
+             ["ell_relax_round"])
+    all_on_route(runs[-1], "ell_relax_round", "slab")
+    run = runs[-1]
+    res = run["results"]
+    flows = float(np.mean([d.sum() for d in dems]))
+    thm1 = bounds.throughput_upper_bound(512, 16, flows)
+    lb, ub = check_brackets(name, res)
+    if not np.all(ub <= thm1):
+        raise SystemExit(f"chip_smoke: {name}: ub above Theorem 1 ({thm1}): "
+                         f"{ub}")
+    b = {"theorem1": thm1, "lb": lb.tolist(), "ub": ub.tolist(),
+         "gap": ((ub - lb) / ub).tolist(),
+         "iterations": [r.meta["iterations"] for r in res],
+         "steps": run["steps"], "wall_s": run["wall_s"],
+         "ms_per_step": 1e3 * run["wall_s"] / run["steps"],
+         "instances_per_s": len(res) / run["wall_s"],
+         "k3_launches_per_step": run["launches"]["ell_relax_round"]
+         / run["steps"]}
+    b["profile"] = profile_certified(
+        get_engine("certified", iters=10), topos, dems)
+    b["seconds"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "9b", **b}))
+    return {"a": a, "b": b}
+
+
+def phase_figure(lp, het, figures, CertifiedEngine, runs) -> dict:
+    """Phase 10: Fig. 5 at paper scale on the certified engine (tol 1e-4,
+    one BatchPlan, every lane padded to N = 60: K1 squaring); one run of
+    every point held against HiGHS, solved in worker processes after the
+    card's run (the host loop would share the CPU with them)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.core import traffic as traffic_mod
+    from repro_torch.kernels import _build
+
+    class Kept(CertifiedEngine):
+        def solve_batch(self, topos, dems):
+            self.kept = (topos, dems, super().solve_batch(topos, dems))
+            return self.kept[2]
+
+    biases = (0.1, 0.3, 0.6, 1.0, 1.4, 1.8)
+    # benchmarks/fig5.py's paper runs and the seed of run 0
+    runs_per_point, seed = 10, 3
+    specs = figures._fig5_specs("paper")
+    held = []
+    for spec in specs.values():
+        for bias in biases:
+            t = het.build_two_class(spec, spec.proportional_large_servers,
+                                    bias, seed)
+            held.append((t, traffic_mod.make("permutation", t.servers,
+                                             seed + 1)))
+    eng = Kept(tol=1e-4)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t1 = time.perf_counter()
+    rows = figures.fig5(scale="paper", engine=eng, biases=biases)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 4, mp_context=ctx) as pool:
+        lps = [pool.submit(lp.max_concurrent_flow, t.cap, d, False)
+               for t, d in held]
+        theta = np.array([f.result().throughput for f in lps])
+    lp_s = time.perf_counter() - t0
+    topos, dems, res = eng.kept
+    name = "phase 10 fig5 paper certified (180 x 40-60 switches)"
+    if counts["minplus_acc"] == 0:
+        raise SystemExit(f"chip_smoke: {name} did not launch minplus_acc: "
+                         f"{counts}")
+    steps = sum(max(r.meta["iterations"] for r in res
+                    if r.meta["chunk"] == c) + 1
+                for c in range(res[0].meta["chunks"]))
+    runs.append({"path": name, "launches": counts, "sites": sites,
+                 "steps": steps})
+    if len(res) != 180 or len(rows) != 18 or res[0].meta["chunks"] != 1:
+        raise SystemExit(f"chip_smoke: {name}: {len(res)} instances, "
+                         f"{len(rows)} rows, {res[0].meta['chunks']} chunks")
+    idx = [c * len(biases) * runs_per_point + p * runs_per_point
+           for c in range(len(specs)) for p in range(len(biases))]
+    for i, (t, d) in zip(idx, held):
+        if not (np.array_equal(topos[i].cap, t.cap)
+                and np.array_equal(dems[i], d)):
+            raise SystemExit(f"chip_smoke: {name}: held instance {i} is not "
+                             "the one the figure solved")
+    lb, ub = check_brackets(name, res)
+    check_brackets(f"{name}, held runs", [res[i] for i in idx], theta)
+    if not all(np.isfinite(r["gap"]) and r["gap"] >= 0 for r in rows):
+        raise SystemExit(f"chip_smoke: {name}: bad gap column: {rows}")
+    out = {"instances": len(res), "wall_s": wall, "steps": steps,
+           "instances_per_s": len(res) / wall,
+           "iterations_max": int(max(r.meta["iterations"] for r in res)),
+           "iterations_mean": float(np.mean([r.meta["iterations"]
+                                             for r in res])),
+           "gap_max_by_config": {c: max(r["gap"] for r in rows
+                                        if r["config"] == c) for c in specs},
+           "held_theta": theta.tolist(),
+           "held_lb": lb[idx].tolist(), "held_ub": ub[idx].tolist(),
+           "lp_seconds": lp_s, "launches": counts,
+           "plan": eng.last_plan.as_dict(),
+           "profile": profile_certified(CertifiedEngine(iters=10), topos,
+                                        dems),
+           "rows": rows}
+    log(json.dumps({"phase": "10", **out}))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -957,7 +1159,23 @@ def main() -> None:
             f"{served[arch]['decode_tok_per_s']:.1f} tok/s "
             f"(phase wall {time.perf_counter() - t0:.1f} s)")
 
-    # phase 9: summary
+    # phase 9: the certified path (brackets) at the Fig. 1 point and at
+    # phase 3's full size
+    t0 = time.perf_counter()
+    certified = phase_certified(get_engine, bounds, topos, dems, otopos,
+                                odems, exact, runs)
+    log(f"phase 9 (certified) wall {time.perf_counter() - t0:.1f} s")
+
+    # phase 10: Fig. 5 at paper scale through the figure layer
+    from repro_torch.core import heterogeneous as het
+    from repro_torch.core.engine import CertifiedEngine
+    from repro_torch.launch import figures
+    t0 = time.perf_counter()
+    fig5 = phase_figure(lp, het, figures, CertifiedEngine, runs)
+    log(f"{card}: phase 10 fig5 paper {fig5['instances_per_s']:.2f} "
+        f"instances/s (phase wall {time.perf_counter() - t0:.1f} s)")
+
+    # phase 11: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "

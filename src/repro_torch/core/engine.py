@@ -4,13 +4,20 @@
 * ``ExactLPEngine`` — the HiGHS LP oracle (``repro_torch.core.lp``).
 * ``DualEngine`` — the dual descent (``repro_torch.core.mcf``), a certified
   upper bound; ``solve_batch`` runs through ``BatchPlan``.
+* ``PrimalEngine`` — the Frank–Wolfe primal (``repro_torch.core.primal``),
+  a certified lower bound with the driving dual's upper bound in
+  ``meta["ub"]``; same planner, same knobs.
+* ``CertifiedEngine`` — the same program reported as a bracket:
+  ``meta["lb"]`` / ``meta["ub"]`` / ``meta["gap"]``.
 * ``AutoEngine`` — exact LP for small instances, the dual beyond.
-* ``get_engine("exact" | "dual" | "dual-pallas" | "auto")`` and
+* ``get_engine("exact" | "dual" | "dual-pallas" | "primal" | "certified" |
+  "auto")`` and
   ``as_engine``.  The names are the reference's: ``"dual-pallas"`` is the
   dual descent whose APSP is repeated squaring on the hand-written
   tropical kernel (K1).
 * ``Sweep`` / ``run_sweep`` / ``run_sweeps`` — (xs × runs) experiments, a
-  whole family through one ``solve_batch``.
+  whole family through one ``solve_batch``; on a bracket engine each
+  ``SweepPoint`` carries ``lb_mean`` / ``gap_max``.
 
 The planned engines take ``device`` (default ``"cuda"``; without a card
 they raise unless ``device="cpu"`` is asked for).
@@ -24,21 +31,24 @@ import numpy as np
 import torch
 
 from repro_torch.core import apsp as apsp_mod
-from repro_torch.core import lp, mcf
+from repro_torch.core import lp, mcf, primal
 from repro_torch.core import traffic as traffic_mod
 from repro_torch.core.graphs import Topology, as_cap
 from repro_torch.core.plan import BatchPlan, InstanceSolve, bucket_size
 
 __all__ = ["ThroughputResult", "ThroughputEngine", "ExactLPEngine",
-           "DualEngine", "AutoEngine", "ENGINES", "get_engine", "as_engine",
-           "bucket_size", "SweepPoint", "Sweep", "run_sweep", "run_sweeps"]
+           "DualEngine", "PrimalEngine", "CertifiedEngine", "AutoEngine",
+           "ENGINES", "get_engine", "as_engine", "bucket_size", "SweepPoint",
+           "Sweep", "run_sweep", "run_sweeps"]
 
 
 @dataclasses.dataclass(frozen=True)
 class ThroughputResult:
     """Throughput θ of one (topology, demand) instance (max concurrent flow
-    rate per unit demand).  ``bound``: ``"exact"`` (LP optimum) or
-    ``"upper"`` (certified upper bound converging to θ*)."""
+    rate per unit demand).  ``bound``: ``"exact"`` (LP optimum),
+    ``"upper"`` / ``"lower"`` (a certified one-sided bound converging to
+    θ*) or ``"bracket"`` (an upper bound whose ``meta`` carries ``lb`` /
+    ``ub`` / ``gap``)."""
 
     throughput: float
     is_upper_bound: bool
@@ -180,8 +190,10 @@ class _PlannedEngine:
         return kept, dropped
 
     def _disconnected_result(self) -> ThroughputResult:
+        """θ* = 0 on both sides, without running a solver."""
         s = InstanceSolve(value=0.0, iterations=0,
-                          meta={"final_ratio": 0.0, "disconnected": True})
+                          meta={"ub": 0.0, "final_ratio": 0.0,
+                                "final_util": 0.0, "disconnected": True})
         return self._result(s)
 
     @staticmethod
@@ -191,6 +203,16 @@ class _PlannedEngine:
             return r
         return dataclasses.replace(
             r, meta={**r.meta, "dropped_demand_fraction": frac})
+
+    def _solve_preprocessed(self, topo, dem):
+        """One-instance coarsen + ``on_disconnected`` preamble of ``solve``:
+        (topo, kept_dem, dropped_fraction, short_circuit_result_or_None)."""
+        (topo,), (dem,) = self._coarsen_instances([topo], [dem])
+        (dem,), (frac,) = self._apply_disconnection_policy([topo], [dem])
+        if frac is not None and frac >= 1.0:
+            return topo, dem, frac, self._with_dropped(
+                self._disconnected_result(), frac)
+        return topo, dem, frac, None
 
     def solve_batch(self, topos, dems) -> list[ThroughputResult]:
         _check_batch_lengths(topos, dems)
@@ -220,10 +242,9 @@ class DualEngine(_PlannedEngine):
                      else "dual")
 
     def solve(self, topo, dem) -> ThroughputResult:
-        (topo,), (dem,) = self._coarsen_instances([topo], [dem])
-        (dem,), (frac,) = self._apply_disconnection_policy([topo], [dem])
-        if frac is not None and frac >= 1.0:
-            return self._with_dropped(self._disconnected_result(), frac)
+        topo, dem, frac, short = self._solve_preprocessed(topo, dem)
+        if short is not None:
+            return short
         res = mcf.solve_dual(topo, dem, device=self.device,
                              **self._solver_kw())
         return self._with_dropped(ThroughputResult(
@@ -235,6 +256,52 @@ class DualEngine(_PlannedEngine):
     def _result(self, s) -> ThroughputResult:
         return ThroughputResult(throughput=s.value, is_upper_bound=True,
                                 engine=self.name, meta=s.meta)
+
+
+class PrimalEngine(_PlannedEngine):
+    """Certified primal LOWER bound (``repro_torch.core.primal``):
+    ``bound="lower"``, an explicit feasible flow routes every demand at rate
+    ``throughput``; the driving dual's upper bound is ``meta["ub"]``."""
+
+    name = "primal"
+    solver = "primal"
+
+    def solve(self, topo, dem) -> ThroughputResult:
+        topo, dem, frac, short = self._solve_preprocessed(topo, dem)
+        if short is not None:
+            return short
+        res = primal.solve_primal(topo, dem, device=self.device,
+                                  **self._solver_kw())
+        return self._with_dropped(self._result(InstanceSolve(
+            value=res.throughput_lb, iterations=res.iterations,
+            meta={"iterations": res.iterations,
+                  "final_util": res.final_util,
+                  "ub": res.throughput_ub})), frac)
+
+    def _result(self, s) -> ThroughputResult:
+        return ThroughputResult(throughput=s.value, is_upper_bound=False,
+                                engine=self.name, bound="lower", meta=s.meta)
+
+
+def _bracket(lb: float, ub: float, meta: Mapping[str, Any],
+             engine: str) -> ThroughputResult:
+    gap = (ub - lb) / max(ub, 1e-30)
+    meta = {k: v for k, v in meta.items() if k != "ub"}
+    return ThroughputResult(
+        throughput=ub, is_upper_bound=True, engine=engine, bound="bracket",
+        meta={"lb": lb, "ub": ub, "gap": gap, **meta})
+
+
+class CertifiedEngine(PrimalEngine):
+    """Certified (lb, ub, gap) brackets from the primal program:
+    ``bound="bracket"``, ``throughput`` is the upper bound and ``meta``
+    carries ``lb`` / ``ub`` / ``gap`` = (ub − lb) / ub.  Pass/fail
+    criteria judge ``meta["lb"]`` (``vl2.supports_full_throughput``)."""
+
+    name = "certified"
+
+    def _result(self, s) -> ThroughputResult:
+        return _bracket(s.value, s.meta["ub"], s.meta, self.name)
 
 
 class AutoEngine:
@@ -289,6 +356,8 @@ ENGINES: dict[str, Callable[..., ThroughputEngine]] = {
     "exact": ExactLPEngine,
     "dual": DualEngine,
     "dual-pallas": lambda **kw: DualEngine(use_pallas=True, **kw),
+    "primal": PrimalEngine,
+    "certified": CertifiedEngine,
     "auto": AutoEngine,
 }
 
@@ -312,13 +381,18 @@ def as_engine(engine: str | ThroughputEngine) -> ThroughputEngine:
 
 @dataclasses.dataclass(frozen=True)
 class SweepPoint:
-    """One x of a sweep: throughput stats over the seeded runs; ``meta``
-    carries aggregates requested through ``run_sweeps(meta_reduce=...)``."""
+    """One x of a sweep: throughput stats over the seeded runs, and the
+    bracket aggregates when every run carries a bracket (``lb_mean``: mean
+    certified lower bound; ``gap_max``: worst (ub − lb) / ub; else None);
+    ``meta`` carries aggregates requested through
+    ``run_sweeps(meta_reduce=...)``."""
 
     x: float
     mean: float
     std: float
     values: tuple[float, ...]
+    lb_mean: float | None = None
+    gap_max: float | None = None
     meta: Mapping[str, float] = dataclasses.field(default_factory=dict)
 
 
@@ -364,13 +438,19 @@ def run_sweeps(items: Sequence[tuple[Sweep, Callable[[float, int], Topology]]],
             rs = results[lo:lo + sweep.runs]
             vals = [r.throughput for r in rs]
             v = np.asarray(vals)
+            lbs = [r.meta["lb"] for r in rs if "lb" in r.meta]
+            gaps = [r.meta["gap"] for r in rs if "gap" in r.meta]
+            bracketed = rs and len(lbs) == len(rs) and len(gaps) == len(rs)
             meta: dict[str, float] = {}
             for key, reduce_fn in (meta_reduce or {}).items():
                 got = [r.meta[key] for r in rs if key in r.meta]
                 if rs and len(got) == len(rs):
                     meta[key] = float(reduce_fn(got))
-            points.append(SweepPoint(float(x), float(v.mean()),
-                                     float(v.std()), tuple(vals), meta=meta))
+            points.append(SweepPoint(
+                float(x), float(v.mean()), float(v.std()), tuple(vals),
+                lb_mean=float(np.mean(lbs)) if bracketed else None,
+                gap_max=float(max(gaps)) if bracketed else None,
+                meta=meta))
         out.append(points)
     return out
 

@@ -1,5 +1,8 @@
-"""BatchPlan — planning and execution of batched dual solves (the port of
-``repro.core.plan``).
+"""BatchPlan — planning and execution of batched solves (the port of
+``repro.core.plan``): ``execute(solver="dual")`` runs the dual descent
+(``mcf``), ``execute(solver="primal")`` the Frank–Wolfe primal
+(``primal``, a certified lower bound with the dual's upper bound) over
+the same buckets and chunks.
 
 1. **Buckets** — instances are grouped by padded node count
    (``bucket_size``) and padded to their bucket's largest member; padded
@@ -23,7 +26,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import mcf
+from repro_torch.core import mcf, primal
 from repro_torch.core.graphs import Topology, as_cap, degree_stats
 
 __all__ = ["bucket_size", "device_count", "Chunk", "PlanStats",
@@ -92,8 +95,10 @@ class PlanStats:
 @dataclasses.dataclass(frozen=True)
 class InstanceSolve:
     """Per-instance solver output of an executed plan: ``value`` is the
-    certified bound (an UPPER bound under ``solver="dual"``); the rest of
-    the solver's outputs and the plan placement land in ``meta``."""
+    certified bound (an UPPER bound under ``solver="dual"``, a LOWER bound
+    under ``solver="primal"``, whose dual upper bound is ``meta["ub"]``);
+    the rest of the solver's outputs and the plan placement land in
+    ``meta``."""
 
     value: float
     iterations: int
@@ -107,10 +112,17 @@ def _dispatch_dual(capp, demp, n_valid, solver_kw):
             "iterations": r.iterations}
 
 
+def _dispatch_primal(capp, demp, n_valid, solver_kw):
+    r = primal.solve_primal_batch(capp, demp, n_valid=n_valid, block=False,
+                                  **solver_kw)
+    return {"value": r.throughput_lb, "ub": r.throughput_ub,
+            "final_util": r.final_util, "iterations": r.iterations}
+
+
 # chunk dispatchers by solver name: (capp, demp, n_valid, solver_kw) ->
 # dict of per-lane device tensors; "value" is the headline bound, every
 # other key is copied into the per-instance meta
-SOLVERS = {"dual": _dispatch_dual}
+SOLVERS = {"dual": _dispatch_dual, "primal": _dispatch_primal}
 
 
 class BatchPlan:

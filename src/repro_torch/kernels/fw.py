@@ -16,8 +16,12 @@ has a zero diagonal and is min-plus closed), so no masking is needed.
 K2 ``fw_pivot`` replaces the reference's ``_pivot_kernel``; it is bound by
 the latency of ``t`` sequential steps over one tile on one SM: the tile
 stays in registers, row and column k go through shared memory, one
-barrier a pivot (see the note in ``csrc/fw_pivot.cu``).  On the card it
-takes tiles up to ``FW_TILE``.  ``fw_pivot`` and
+barrier a pivot (see the note in ``csrc/fw_pivot.cu``).  K2 holds tiles up
+to ``FW_TILE``; a wider tile on the card is padded to a multiple of it
+with the non-edge sentinel and closed by ``fw_apsp_blocked`` at
+``t = FW_TILE`` (K2 + K1, counted as such), so ``fw_apsp_blocked(w, t=)``
+takes any ``t``, as the reference's ``fw_apsp_pallas(w, t=)`` does.
+``fw_pivot`` and
 ``minplus_acc`` pick by device: the kernel for CUDA tensors, the plain
 version for CPU tensors.
 
@@ -38,6 +42,7 @@ __all__ = ["fw_tile_closure", "fw_pivot", "fw_apsp_blocked", "fw_apsp_plain",
            "FW_TILE"]
 
 FW_TILE = 128   # pivot tile of fw_apsp_blocked; K2's largest tile on the card
+_INF = 1.0e18   # == repro_torch.core.apsp._INF (non-edge sentinel)
 
 
 def fw_tile_closure(d: torch.Tensor) -> torch.Tensor:
@@ -53,8 +58,8 @@ def fw_tile_closure(d: torch.Tensor) -> torch.Tensor:
 def fw_pivot(d: torch.Tensor) -> torch.Tensor:
     """Close every [t, t] tile of ``d`` [B, t, t] IN PLACE and return it.
     ``d`` may be a strided view (row and lane strides, contiguous last
-    axis).  CUDA tensors launch K2 (t <= ``FW_TILE``), CPU tensors run
-    ``fw_tile_closure``."""
+    axis).  CUDA tensors launch K2 (wider tiles than ``FW_TILE`` go through
+    ``_close_wide``), CPU tensors run ``fw_tile_closure``."""
     if d.dim() != 3 or d.shape[1] != d.shape[2]:
         raise ValueError(f"fw_pivot: [B, t, t] tiles required, got "
                          f"{tuple(d.shape)}")
@@ -65,8 +70,8 @@ def fw_pivot(d: torch.Tensor) -> torch.Tensor:
         return d
     bsz, t, _ = d.shape
     if t > FW_TILE:
-        raise ValueError(f"fw_pivot: tiles up to {FW_TILE}x{FW_TILE} on the "
-                         f"card (FW_TILE), got {t}x{t}")
+        d.copy_(_close_wide(d))
+        return d
     if d.stride(2) != 1:
         raise ValueError("fw_pivot: needs a contiguous last axis")
     lib = _build.load()
@@ -77,10 +82,22 @@ def fw_pivot(d: torch.Tensor) -> torch.Tensor:
     return d
 
 
+def _close_wide(d: torch.Tensor) -> torch.Tensor:
+    """The closure of tiles [B, t, t] wider than K2's ``FW_TILE``: padded
+    to a multiple of it with ``_INF`` (padded nodes have no edges, so the
+    real distances are unchanged) and closed by ``fw_apsp_blocked``."""
+    t = d.shape[-1]
+    pad = (-t) % FW_TILE
+    w = torch.nn.functional.pad(d, (0, pad, 0, pad), value=_INF)
+    return fw_apsp_blocked(w, t=FW_TILE)[:, :t, :t]
+
+
 def fw_apsp_blocked(w: torch.Tensor, *, t: int = FW_TILE) -> torch.Tensor:
     """Blocked Floyd-Warshall closure of float32 ``w`` [B, N, N]; N must be
     a multiple of ``t`` (callers pad with the non-edge sentinel).  Returns
-    a new tensor; one pivot step is one K2 and three K1 launches."""
+    a new tensor; one pivot step is one K2 and three K1 launches at ``t <=
+    FW_TILE`` (a wider pivot tile is itself closed blocked, see
+    ``fw_pivot``)."""
     if w.dim() != 3 or w.shape[1] != w.shape[2]:
         raise ValueError(f"fw_apsp_blocked: [B, N, N] required, got "
                          f"{tuple(w.shape)}")

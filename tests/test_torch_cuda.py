@@ -163,11 +163,36 @@ def test_cuda_fw_pivot_each_tile_size_is_exact(cuda, t):
 
 
 @pytest.mark.cuda
-def test_cuda_fw_pivot_refuses_tiles_over_128(cuda):
-    before = _build.LAUNCHES["fw_pivot"]
-    with pytest.raises(ValueError, match="FW_TILE"):
-        p_fw.fw_pivot(torch.zeros(2, 129, 129, device=cuda))
-    assert _build.LAUNCHES["fw_pivot"] == before
+@pytest.mark.parametrize("t", [129, 200, 256])
+def test_cuda_fw_pivot_closes_tiles_over_128(cuda, t):
+    """Tiles wider than K2's 128 are padded to 256 with the non-edge
+    sentinel and closed blocked (2 K2 + 6 K1 launches), in place in a
+    strided view too: bit-equal to plain Floyd-Warshall; and
+    ``fw_apsp_blocked(w, t=256)`` closes N = 512 like ``t=128``."""
+    w = _lanes(t + 21, 2, p=0.05).to(cuda)
+    tiles = w[:, :t, :t].clone()
+    _build.reset_launches()
+    got = p_fw.fw_pivot(tiles.clone())
+    assert _build.LAUNCHES["fw_pivot"] == 2
+    assert _build.LAUNCHES["minplus_acc"] == 6
+    assert torch.equal(got, p_fw.fw_apsp_plain(tiles))
+    d = w.clone()
+    p_fw.fw_pivot(d[:, 7:7 + t, 13:13 + t])
+    assert torch.equal(d[:, 7:7 + t, 13:13 + t],
+                       p_fw.fw_apsp_plain(w[:, 7:7 + t, 13:13 + t]))
+    d[:, 7:7 + t, 13:13 + t] = w[:, 7:7 + t, 13:13 + t]
+    assert torch.equal(d, w)
+    big = _lanes(512, 2, p=0.02).to(cuda)
+    assert torch.equal(p_fw.fw_apsp_blocked(big, t=256),
+                       p_fw.fw_apsp_plain(big))
+
+
+@pytest.mark.parametrize("t", [129, 200, 256])
+def test_wide_tile_closure_pads_and_blocks(t):
+    """The wide-tile route's padding and blocking on the CPU (plain K1/K2
+    versions): bit-equal to plain Floyd-Warshall."""
+    w = _lanes(t, 2, p=0.05)
+    assert torch.equal(p_fw._close_wide(w), p_fw.fw_apsp_plain(w))
 
 
 @pytest.mark.cuda
@@ -295,6 +320,40 @@ def test_cuda_apsp_backends_and_subgradients_agree(cuda):
     d = p_apsp.apsp(wc, "blocked-fw")
     (d * torch.where(d < _INF / 2, g.cpu(), 0.0)).sum().backward()
     assert torch.equal(wc.grad, grads["squaring"].cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_certified_brackets_agree_across_backends(cuda):
+    """The certified engine on the card, APSP by K1 squaring and by K3
+    Bellman-Ford.  On each backend the card's brackets are the CPU's bit
+    for bit (the descent is built from exactly rounded ops and sums in a
+    fixed order, see ``repro_torch.core.primal``).  Across the two
+    backends they are not: squaring and Bellman-Ford add a path's lengths
+    in another association, so α = Σ dem·dist differs by an ulp, the next
+    lengths differ by an ulp, and a near-tied pair of paths then falls on
+    the other side of the SP-DAG's tie test; the FW loads move a whole
+    demand unit and the lower bounds part (by 0.6% at 150 steps on this
+    pile).  So across backends each bracket is held to the LP optimum."""
+    from repro_torch.core import engine, graphs, lp, traffic
+    topos = [graphs.random_regular_graph(n, 4, seed=s, servers=3)
+             for s, n in enumerate((24, 32, 40))]
+    dems = [traffic.make("permutation", t.servers, seed=s + 1)
+            for s, t in enumerate(topos)]
+    theta = [lp.max_concurrent_flow(t.cap, d, want_flows=False).throughput
+             for t, d in zip(topos, dems)]
+    for backend, kernel in (("squaring", "minplus_acc"),
+                            ("ell-bf", "ell_relax_round")):
+        _build.reset_launches()
+        card = engine.get_engine("certified", iters=150,
+                                 backend=backend).solve_batch(topos, dems)
+        assert _build.LAUNCHES[kernel] > 0, backend
+        cpu = engine.get_engine("certified", iters=150, backend=backend,
+                                device="cpu").solve_batch(topos, dems)
+        for a, b, th in zip(card, cpu, theta):
+            assert (a.meta["lb"], a.meta["ub"]) == (b.meta["lb"],
+                                                    b.meta["ub"]), backend
+            assert 0 < a.meta["lb"] <= th * (1 + 1e-6)
+            assert th <= a.meta["ub"] * (1 + 1e-6)
 
 
 def _normal(seed, *shape):

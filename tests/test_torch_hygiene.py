@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import get_engine, graphs, mcf, traffic  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import figures  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -42,7 +43,10 @@ def test_port_imports_neither_jax_nor_reference(path):
 
 def test_import_leaves_jax_out_of_the_process():
     code = ("import sys, repro_torch, repro_torch.core, repro_torch.kernels."
-            "ell, repro_torch.kernels.fw, repro_torch.kernels.ops\n"
+            "ell, repro_torch.kernels.fw, repro_torch.kernels.ops, "
+            "repro_torch.core.primal, repro_torch.core.heterogeneous, "
+            "repro_torch.core.vl2, repro_torch.core.fabric, "
+            "repro_torch.core.decompose, repro_torch.launch.figures\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -65,6 +69,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         get_engine("dual").solve_batch([topo], [dem])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         mcf.aspl(topo)
+    for name in ("primal", "certified"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_engine(name).solve(topo, dem)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_engine(name).solve_batch([topo], [dem])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        figures.main(["--only", "fig5", "--engine", "certified"])
     assert mcf.resolve_device("cpu") == torch.device("cpu")
     assert mcf.aspl(topo, device="cpu") > 1.0
 
