@@ -64,12 +64,42 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ms of the APSP forward, the SP-DAG backward, the FW line search and the
    rest, idle share);
 10. the figure layer — ``repro_torch.launch.figures.fig5`` at paper scale
-   (3 configurations x 6 biases x 10 runs = 180 instances of 40-60 switches,
+   at 5 runs a point, the paper's 10 halved so that phases 11-13 fit (3
+   configurations x 6 biases x 5 runs = 90 instances of 40-60 switches,
    one BatchPlan, certified engine at tol 1e-4: K1 squaring); the first
    run of every point (18 instances) held against HiGHS (lb <= θ <= ub),
-   whose LPs run in worker processes after the card's run; then 10
-   profiled steps of the same plan, split as in 9b;
-11. summary — one JSON line with every kernel, then the device line last.
+   whose LPs run in 4 worker processes beside phases 11-13 and are
+   checked after them; then 10 profiled steps of the same plan, split as
+   in 9b;
+11. the scale probe — ``kernels.ell.ell_bf_apsp_streamed`` (K3, route
+   "l2"): (a) at N = 2048 equal bit for bit to the full ``ell_bf_apsp``
+   with the same rounds; (b) ``benchmarks/scale_bench.py``'s probe,
+   ``random_regular_ell(16384, 16, seed=0)`` in blocks of 1024 sources:
+   wall, rounds, K3 launches by route (every one "l2"), peak device
+   memory (``max_memory_allocated``), and 32 sources within rtol 1e-6 of
+   scipy's Dijkstra; (c) K3 "l2" timed at the streamed shape
+   [1, 16384, 1024] against its plain version (exact), beside its bound;
+12. adversarial traffic — ``core.adversarial.find_worst_tm`` at
+   ``benchmarks/adversarial_bench.py``'s paper budget (4 rounds, 8
+   candidates, 300 iterations) on (a) its two-cluster family (20
+   switches, K1 squaring): lb <= HiGHS θ of the worst TM <= ub and ub
+   below the baseline's; (b) phase 3's first RRG(512, 16) (auto ->
+   ell-bf, every K3 launch on route "slab"): lb <= ub <= the baseline's
+   ub.  Both: every candidate within 1e-4 of the hose caps, 5 executes,
+   one compile key; wall, instances/s and the device's idle share over
+   one profiled round;
+13. the design layer — (a) ``design.optimize`` at
+   ``benchmarks/design_bench.py``'s paper budget (3 rounds, fleet 8,
+   elite 3, 2 runs, ``DualEngine(iters=250, tol=1e-3)``, K1) on
+   ``VL2Space(VL2Spec(6, 6, 20))`` and the two-class pool (10 x 18 + 20
+   x 6 ports, 90 servers, ``robust=True``): best lb >= the recipe's, 1 +
+   rounds search executes on one compile key; (b)
+   ``launch.figures.fig11`` at d_a = d_i = 10, 5 runs, HiGHS as the
+   criterion (its LPs in worker processes), then the designer's search
+   at the recipe's ToR count again: its pick's certified lb >= the
+   recipe's, and designed ToRs >= rewired ToRs exactly when the pick
+   holds the figure's 5 held-out permutations under HiGHS;
+14. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -77,9 +107,10 @@ Floyd-Warshall.
 
 Launch counts are reset just before each path's run (phase 3's, each of
 phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
-solves and phase 10's figure) and read just after it; a kernel of a path
-that was not launched fails the run.  The summary reports every path's own
-counts, never a sum over runs: ``launches`` of a kernel is from the first path
+solves, phase 10's figure, phase 11's two streamed closures, each search
+of phases 12-13 and phase 13's figure) and read just after it; a kernel
+of a path that was not launched fails the run.  The summary reports every
+path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
 ``paths`` lists each run that launched it, with K1's launches in the
 blocked-fw run split by panel (row, column, outer) and K4's split into
@@ -113,6 +144,10 @@ FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores (H100 SXM)
 BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TIMING_RUNS = 30
+# Fig. 5 runs a point in phase 10: the paper's 10 halved, so that phases
+# 11-13 fit the script's time; and the processes its HiGHS LPs take
+FIG5_RUNS = 5
+LP_WORKERS = 4
 
 
 def log(msg: str) -> None:
@@ -336,6 +371,21 @@ def instances(graphs, traffic, n, deg, servers, seeds):
     return topos, dems
 
 
+def record_path(name: str, runs: list, need, steps=None) -> dict:
+    """Append the launch counts read just after a path's run (reset just
+    before it) to ``runs``; fails unless every kernel in ``need`` ran."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+    for k in need:
+        if counts[k] == 0:
+            raise SystemExit(f"chip_smoke: {name} did not launch {k}: "
+                             f"{counts}")
+    runs.append({"path": name, "launches": counts, "sites": sites,
+                 "steps": steps})
+    return runs[-1]
+
+
 def run_path(name, engine, topos, dems, runs, need):
     """Solve one pile with the counts reset just before and read just
     after; append the path's own record to ``runs``."""
@@ -346,19 +396,14 @@ def run_path(name, engine, topos, dems, runs, need):
     res = engine.solve_batch(topos, dems)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(_build.LAUNCHES)
-    sites = dict(_build.SITE_LAUNCHES)
-    for k in need:
-        if counts[k] == 0:
-            raise SystemExit(f"chip_smoke: {name} did not launch {k}: "
-                             f"{counts}")
     its = [r.meta["iterations"] for r in res]
     # descent steps plus the final forward, per batched chunk
     steps = sum(max(r.meta["iterations"] for r in res
                     if r.meta["chunk"] == c) + 1
                 for c in range(res[0].meta["chunks"]))
-    runs.append({"path": name, "launches": counts, "sites": sites,
-                 "steps": steps, "wall_s": wall, "results": res})
+    run = record_path(name, runs, need, steps)
+    run.update(wall_s=wall, results=res)
+    counts, sites = run["launches"], run["sites"]
     ubs = np.array([r.throughput for r in res])
     if not np.all(np.isfinite(ubs) & (ubs > 0)):
         raise SystemExit(f"chip_smoke: {name} bounds not finite/positive: "
@@ -386,6 +431,35 @@ PORT_KERNELS = {"K1 minplus_acc": "minplus_acc_kernel",
                 "K2 fw_pivot": "fw_pivot_kernel",
                 "K3 ell_relax_round slab": "ell_slab_kernel",
                 "K3 ell_relax_round l2": "ell_l2_kernel"}
+
+
+def device_busy(fn) -> dict:
+    """The device's kernel time and idle share while ``fn()`` runs: only
+    the device is traced, and the trace is read back from the profiler's
+    own JSON export (``build/``), which stays cheap for a window of many
+    thousand kernels where building the profiler's event objects does
+    not."""
+    from torch.profiler import ProfilerActivity, profile
+    path = ROOT / "build" / "device_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(path))
+    by_kernel: dict[str, float] = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            by_kernel[e["name"]] = by_kernel.get(e["name"], 0.0) + \
+                e["dur"] / 1e3
+    path.unlink()
+    busy = sum(by_kernel.values())
+    return {"wall_ms": wall_ms, "kernel_ms": busy,
+            "device_idle_share": 1 - busy / wall_ms,
+            "top_kernels_ms": [[k[:70], ms] for k, ms in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1])[:6]]}
 
 
 def profile_steps(engine, topos, dems) -> dict:
@@ -516,13 +590,14 @@ def phase_certified(get_engine, bounds, topos, dems, otopos, odems, exact,
     return {"a": a, "b": b}
 
 
-def phase_figure(lp, het, figures, CertifiedEngine, runs) -> dict:
+def phase_figure(lp, het, figures, CertifiedEngine, runs, pool):
     """Phase 10: Fig. 5 at paper scale on the certified engine (tol 1e-4,
-    one BatchPlan, every lane padded to N = 60: K1 squaring); one run of
-    every point held against HiGHS, solved in worker processes after the
-    card's run (the host loop would share the CPU with them)."""
-    import concurrent.futures
-    import multiprocessing
+    one BatchPlan, every lane padded to N = 60: K1 squaring) at
+    ``FIG5_RUNS`` runs a point; one run of every point held against
+    HiGHS.  The LPs go to ``pool`` after the card's run and are read by
+    ``check_figure`` once phases 11-13 are done: the longest takes about
+    two minutes, and the card's phases need one core of the host.
+    Returns (the phase's record, what ``check_figure`` needs)."""
     from repro_torch.core import traffic as traffic_mod
     from repro_torch.kernels import _build
 
@@ -532,8 +607,7 @@ def phase_figure(lp, het, figures, CertifiedEngine, runs) -> dict:
             return self.kept[2]
 
     biases = (0.1, 0.3, 0.6, 1.0, 1.4, 1.8)
-    # benchmarks/fig5.py's paper runs and the seed of run 0
-    runs_per_point, seed = 10, 3
+    seed = 3   # benchmarks/fig5.py's seed of run 0
     specs = figures._fig5_specs("paper")
     held = []
     for spec in specs.values():
@@ -546,20 +620,17 @@ def phase_figure(lp, het, figures, CertifiedEngine, runs) -> dict:
     torch.cuda.synchronize()
     _build.reset_launches()
     t1 = time.perf_counter()
-    rows = figures.fig5(scale="paper", engine=eng, biases=biases)
+    rows = figures.fig5(scale="paper", engine=eng, biases=biases,
+                        runs=FIG5_RUNS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
-    t0 = time.perf_counter()
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            os.cpu_count() or 4, mp_context=ctx) as pool:
-        lps = [pool.submit(lp.max_concurrent_flow, t.cap, d, False)
-               for t, d in held]
-        theta = np.array([f.result().throughput for f in lps])
-    lp_s = time.perf_counter() - t0
+    lps = [pool.submit(lp.max_concurrent_flow, t.cap, d, False)
+           for t, d in held]
     topos, dems, res = eng.kept
-    name = "phase 10 fig5 paper certified (180 x 40-60 switches)"
+    instances = len(specs) * len(biases) * FIG5_RUNS
+    name = (f"phase 10 fig5 paper certified ({instances} x 40-60 "
+            "switches)")
     if counts["minplus_acc"] == 0:
         raise SystemExit(f"chip_smoke: {name} did not launch minplus_acc: "
                          f"{counts}")
@@ -568,35 +639,408 @@ def phase_figure(lp, het, figures, CertifiedEngine, runs) -> dict:
                 for c in range(res[0].meta["chunks"]))
     runs.append({"path": name, "launches": counts, "sites": sites,
                  "steps": steps})
-    if len(res) != 180 or len(rows) != 18 or res[0].meta["chunks"] != 1:
+    if len(res) != instances or len(rows) != 18 or \
+            res[0].meta["chunks"] != 1:
         raise SystemExit(f"chip_smoke: {name}: {len(res)} instances, "
                          f"{len(rows)} rows, {res[0].meta['chunks']} chunks")
-    idx = [c * len(biases) * runs_per_point + p * runs_per_point
+    idx = [c * len(biases) * FIG5_RUNS + p * FIG5_RUNS
            for c in range(len(specs)) for p in range(len(biases))]
     for i, (t, d) in zip(idx, held):
         if not (np.array_equal(topos[i].cap, t.cap)
                 and np.array_equal(dems[i], d)):
             raise SystemExit(f"chip_smoke: {name}: held instance {i} is not "
                              "the one the figure solved")
-    lb, ub = check_brackets(name, res)
-    check_brackets(f"{name}, held runs", [res[i] for i in idx], theta)
+    check_brackets(name, res)
     if not all(np.isfinite(r["gap"]) and r["gap"] >= 0 for r in rows):
         raise SystemExit(f"chip_smoke: {name}: bad gap column: {rows}")
-    out = {"instances": len(res), "wall_s": wall, "steps": steps,
+    out = {"instances": len(res), "runs_per_point": FIG5_RUNS,
+           "wall_s": wall, "steps": steps,
            "instances_per_s": len(res) / wall,
            "iterations_max": int(max(r.meta["iterations"] for r in res)),
            "iterations_mean": float(np.mean([r.meta["iterations"]
                                              for r in res])),
            "gap_max_by_config": {c: max(r["gap"] for r in rows
                                         if r["config"] == c) for c in specs},
-           "held_theta": theta.tolist(),
-           "held_lb": lb[idx].tolist(), "held_ub": ub[idx].tolist(),
-           "lp_seconds": lp_s, "launches": counts,
-           "plan": eng.last_plan.as_dict(),
+           "launches": counts, "plan": eng.last_plan.as_dict(),
            "profile": profile_certified(CertifiedEngine(iters=10), topos,
                                         dems),
            "rows": rows}
     log(json.dumps({"phase": "10", **out}))
+    return out, (name, [res[i] for i in idx], lps, time.perf_counter())
+
+
+def check_figure(out: dict, pending) -> None:
+    """Phase 10's held runs against their HiGHS optima (lb <= θ <= ub)."""
+    name, held_res, lps, t0 = pending
+    theta = np.array([f.result().throughput for f in lps])
+    lb, ub = check_brackets(f"{name}, held runs", held_res, theta)
+    out.update({"held_theta": theta.tolist(), "held_lb": lb.tolist(),
+                "held_ub": ub.tolist(),
+                "lp_seconds_after_card": time.perf_counter() - t0})
+    log(json.dumps({"phase": "10 HiGHS", "held_theta": out["held_theta"],
+                    "held_lb": out["held_lb"], "held_ub": out["held_ub"],
+                    "lp_seconds_after_card": out["lp_seconds_after_card"]}))
+
+
+# ---------------------------------------------------------------------------
+# the scale probe, adversarial traffic and the design layer (phases 11-13)
+# ---------------------------------------------------------------------------
+
+# benchmarks/scale_bench.py's probe graph and block
+PROBE_N, PROBE_D, PROBE_BLOCK = 16384, 16, 1024
+# benchmarks/adversarial_bench.py's paper budget, and the reference's hose
+# tolerance in flow units (tests/test_adversarial.py)
+ADV_BUDGET = dict(rounds=4, candidates=8, iters=300)
+HOSE_TOL = 1e-4
+# benchmarks/design_bench.py's paper budget and ranking engine
+DESIGN_BUDGET = dict(rounds=3, fleet=8, elite=3, runs=2)
+DESIGN_ITERS = 250
+# benchmarks/fig11.py's row keys
+FIG11_KEYS = ["figure", "d_a", "d_i", "traffic", "vl2_tors", "rewired_tors",
+              "gain_pct", "designed_tors", "designed_gain_pct",
+              "vl2_servers", "rewired_servers"]
+
+
+def dijkstra_rows(idx: np.ndarray, wgt: np.ndarray,
+                  sources: np.ndarray) -> np.ndarray:
+    """Distances from ``sources`` by scipy's Dijkstra over the graph of the
+    incoming ELL tables (row t lists the k with an edge k -> t; pads,
+    weight 1e18, dropped)."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    n, d = idx.shape
+    keep = wgt < 1e17
+    tgt = np.repeat(np.arange(n), d).reshape(n, d)
+    g = csr_matrix((wgt[keep].astype(np.float64), (idx[keep], tgt[keep])),
+                   shape=(n, n))
+    return dijkstra(g, directed=True, indices=sources)
+
+
+def phase_scale_probe(graphs, kell, runs) -> dict:
+    """Phase 11: the streamed ELL closure.  (a) At N = 2048, where the full
+    closure fits, streamed == full on the card, bit for bit, with the same
+    rounds; (b) the probe RRG(16384, 16) in blocks of 1024 sources: wall,
+    rounds, K3 launches by route (all ``l2``), peak device memory, and 32
+    sources held against scipy's Dijkstra; (c) K3 ``l2`` timed at the
+    streamed shape [1, 16384, 1024] against its plain version."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    out: dict = {}
+    g = graphs.random_regular_ell(2048, PROBE_D, seed=0)
+    idx, wgt = (torch.as_tensor(x, device=dev)[None] for x in (g.idx, g.wgt))
+    full, full_rounds = kell.ell_bf_apsp(idx, wgt)
+    full = full[0].cpu().numpy()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    d, rounds = kell.ell_bf_apsp_streamed(g.idx, g.wgt, block=PROBE_BLOCK)
+    run = record_path("phase 11a streamed closure RRG(2048,16), block 1024",
+                      runs, ["ell_relax_round"],
+                      steps=_build.LAUNCHES["ell_relax_round"])
+    all_on_route(run, "ell_relax_round", "l2")
+    if rounds != full_rounds or not np.array_equal(d, full):
+        raise SystemExit(f"chip_smoke: phase 11a: streamed closure ({rounds}"
+                         f" rounds) differs from the full one ({full_rounds})")
+    out["a"] = {"n": 2048, "rounds": rounds, "full_rounds": full_rounds,
+                "launches": run["sites"], "equal_bits": True}
+    log(json.dumps({"phase": "11a", **out["a"]}))
+    del full, d, idx, wgt
+
+    t0 = time.perf_counter()
+    g = graphs.random_regular_ell(PROBE_N, PROBE_D, seed=0)
+    gen_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    d, rounds = kell.ell_bf_apsp_streamed(g.idx, g.wgt, block=PROBE_BLOCK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = _build.LAUNCHES["ell_relax_round"]
+    name = (f"phase 11b scale probe RRG({PROBE_N},{PROBE_D}) streamed, "
+            f"block {PROBE_BLOCK}")
+    run = record_path(name, runs, ["ell_relax_round"], steps=launches)
+    all_on_route(run, "ell_relax_round", "l2")
+    sources = np.random.default_rng(0).choice(PROBE_N, 32, replace=False)
+    t0 = time.perf_counter()
+    want = dijkstra_rows(g.idx, g.wgt, sources)
+    dijkstra_s = time.perf_counter() - t0
+    got = d[sources].astype(np.float64)
+    if not (np.all(np.isfinite(want))
+            and np.all(np.abs(got - want) <= 1e-6 * want)):
+        raise SystemExit(f"chip_smoke: {name}: distances from 32 sources "
+                         "disagree with scipy's Dijkstra (max abs diff "
+                         f"{np.abs(got - want).max()})")
+    blocks = PROBE_N // PROBE_BLOCK
+    out["b"] = {"n": PROBE_N, "d_max": g.d_max, "block": PROBE_BLOCK,
+                "blocks": blocks, "wall_s": wall, "graph_gen_s": gen_s,
+                "rounds_max": rounds, "k3_launches": launches,
+                "k3_launches_by_site": run["sites"],
+                "rounds_mean": launches / blocks,
+                "peak_device_bytes": peak,
+                "device_bytes_before": base,
+                "peak_device_bytes_of_call": peak - base,
+                "carry_bytes": 4 * PROBE_N * PROBE_BLOCK,
+                "host_output_bytes": d.nbytes,
+                "max_distance": float(d.max()),
+                "dijkstra_sources": 32, "dijkstra_s": dijkstra_s}
+    log(json.dumps({"phase": "11b", **out["b"]}))
+    del d, got
+
+    # K3 route l2 at the streamed shape: one round on a block's carry
+    idx, wgt = (torch.as_tensor(x, device=dev)[None] for x in (g.idx, g.wgt))
+    m = kell._block_init(idx, wgt, 0, PROBE_BLOCK)
+    got_m, got_f = kell.ell_relax_round(m, idx, wgt)
+    want_m, want_f = kell.ell_relax_round_plain(m, idx, wgt)
+    err = compare("K3 ell_relax_round route l2 [1,16384,1024]", got_m,
+                  want_m)
+    compare("K3 flags route l2 [1,16384,1024]", got_f, want_f)
+    del got_m, want_m
+    d_max = idx.shape[2]
+    bnd, kind = bound_ms(PROBE_N * PROBE_BLOCK * d_max,
+                         4 * 2 * PROBE_N * PROBE_BLOCK + 8 * PROBE_N * d_max)
+    # 3 carries in turn (3 x 67 MB > the 50 MB L2): each read from memory
+    carries = [kell._block_init(idx, wgt, s0, PROBE_BLOCK)
+               for s0 in (0, PROBE_BLOCK, 2 * PROBE_BLOCK)]
+    out["k3"] = {
+        "kernel": "ell_relax_round", "route": "l2",
+        "shape": f"[1,{PROBE_N},{PROBE_BLOCK}] d_max={d_max} "
+                 "(a streamed block)",
+        "ms": time_ms(lambda: kell.ell_relax_round(m, idx, wgt)),
+        "cold_ms": time_ms([functools.partial(kell.ell_relax_round, x, idx,
+                                              wgt) for x in carries]),
+        "plain_ms": time_ms(lambda: kell.ell_relax_round_plain(m, idx, wgt)),
+        "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
+        "exact": True}
+    log(json.dumps(out["k3"]))
+    del carries, m, idx, wgt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class PooledLP:
+    """The HiGHS oracle as a batching engine: ``solve_batch`` solves its
+    LPs in worker processes at once (``vl2.supports_full_throughput``
+    then checks every run, with no early exit)."""
+
+    name = "exact"
+    batches = True
+
+    def __init__(self, pool, lp, result_cls):
+        self.pool, self.lp, self.result_cls = pool, lp, result_cls
+
+    def solve_batch(self, topos, dems):
+        futs = [self.pool.submit(self.lp.max_concurrent_flow,
+                                 np.asarray(t.cap), d, False)
+                for t, d in zip(topos, dems)]
+        return [self.result_cls(throughput=f.result().throughput,
+                                is_upper_bound=False, engine=self.name)
+                for f in futs]
+
+
+def phase_adversarial(graphs, lp, traffic, topo512, runs) -> dict:
+    """Phase 12: ``find_worst_tm`` at the adversarial benchmark's paper
+    budget on (a) its two-cluster family (K1 squaring), held against HiGHS
+    on the worst TM and strictly below the baseline's ub, and (b) phase
+    3's RRG(512, 16), 8 servers a switch (auto -> ell-bf -> K3 slab).
+    Every candidate hose-feasible, 5 executes, one compile key; wall,
+    instances/s and the device's idle share over one profiled round."""
+    from repro_torch.core import adversarial
+    from repro_torch.core.plan import BatchPlan
+    from repro_torch.kernels import _build
+    two_cluster = graphs.biased_two_cluster_graph(
+        [8] * 10, [5] * 10, cross_bias=0.5, seed=1, servers=3)
+    out = {}
+    for key, topo, kernel, route in (
+            ("a", two_cluster, "minplus_acc", None),
+            ("b", topo512, "ell_relax_round", "slab")):
+        name = (f"phase 12{key} adversarial "
+                f"{'two_cluster' if key == 'a' else 'RRG'}({topo.n}) "
+                f"{ADV_BUDGET['rounds']} rounds x "
+                f"{ADV_BUDGET['candidates']} candidates, "
+                f"{ADV_BUDGET['iters']} iters")
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = adversarial.find_worst_tm(topo, seed=0, keep_fleet=True,
+                                        **ADV_BUDGET)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = record_path(name, runs, [kernel])
+        if route:
+            all_on_route(run, kernel, route)
+        s = res.stats
+        viol = max(adversarial.hose_violation(d, topo.servers)
+                   for d in res.fleet + (res.tm,))
+        cands = len(res.fleet)
+        if s["executes"] != 1 + ADV_BUDGET["rounds"] or \
+                len(s["compile_keys"]) != 1 or \
+                cands != ADV_BUDGET["rounds"] * (ADV_BUDGET["candidates"] - 1):
+            raise SystemExit(f"chip_smoke: {name}: {s['executes']} executes, "
+                             f"compile keys {s['compile_keys']}, {cands} "
+                             "candidates")
+        if not viol <= HOSE_TOL:
+            raise SystemExit(f"chip_smoke: {name}: a candidate breaks the "
+                             f"hose caps by {viol}")
+        if not (0 < res.lb <= res.ub <= res.baseline_ub):
+            raise SystemExit(f"chip_smoke: {name}: not 0 < lb <= ub <= "
+                             f"baseline ub: {res.lb} {res.ub} "
+                             f"{res.baseline_ub}")
+        row = {"n": topo.n, "wall_s": wall,
+               "instances": s["executes"] * s["candidates"],
+               "instances_per_s": s["executes"] * s["candidates"] / wall,
+               "lb": res.lb, "ub": res.ub, "baseline_lb": res.baseline_lb,
+               "baseline_ub": res.baseline_ub,
+               "uniform_gap_pct": res.uniform_gap_pct,
+               "max_hose_violation": viol, "candidates_checked": cands + 1,
+               "executes": s["executes"],
+               "compile_keys": s["compile_keys"], "history": res.history,
+               "launches": run["launches"], "sites": run["sites"]}
+        if key == "a":
+            t1 = time.perf_counter()
+            theta = lp.max_concurrent_flow(topo.cap, res.tm,
+                                           want_flows=False).throughput
+            row["theta_highs"], row["lp_s"] = theta, time.perf_counter() - t1
+            if not (res.lb <= theta * (1 + 1e-6)
+                    and theta <= res.ub * (1 + 1e-6)):
+                raise SystemExit(f"chip_smoke: {name}: HiGHS {theta} outside "
+                                 f"[{res.lb}, {res.ub}]")
+            if not res.ub < res.baseline_ub:
+                raise SystemExit(f"chip_smoke: {name}: adversarial ub "
+                                 f"{res.ub} not below the baseline's "
+                                 f"{res.baseline_ub}")
+        # one profiled round: round one's candidates through one execute
+        baseline = traffic.random_permutation(
+            topo.servers, (0, adversarial._BASELINE_KEY))
+        dems = [baseline] + list(res.fleet[:ADV_BUDGET["candidates"] - 1])
+        plan = BatchPlan.build([topo] * ADV_BUDGET["candidates"], dems)
+        row["profiled_round"] = device_busy(lambda: plan.execute(
+            solver="dual-demgrad", iters=ADV_BUDGET["iters"], tol=1e-3))
+        log(json.dumps({"phase": f"12{key}", **row}))
+        out[key] = row
+    return out
+
+
+def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
+    """Phase 13: (a) ``design.optimize`` at the design benchmark's paper
+    budget on its two spaces (the two-class one with ``robust=True``):
+    best lb >= the recipe's, 1 + rounds search executes, one compile key
+    for the search rounds; (b) Fig. 11's designed column at d_a = d_i =
+    10, 5 runs, with HiGHS as the criterion (its LPs in worker
+    processes), and the designer's search at the recipe's ToR count run
+    again: its pick's certified lb >= the recipe's, and the designed
+    count >= the recipe's exactly when that pick holds the figure's 5
+    held-out permutations (the designer scores on 3 samples of its own,
+    so a pick can fail them: ``benchmarks/fig11.py`` says so)."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch import design
+    from repro_torch.kernels import _build
+    out = {}
+    spec = vl2.VL2Spec(d_a=6, d_i=6, servers_per_tor=20)
+    spaces = (
+        ("vl2", design.VL2Space(spec, spec.n_tor_full), ("swap",), False),
+        ("two_class", design.TwoClassSpace(het.TwoClassSpec(
+            n_large=10, k_large=18, n_small=20, k_small=6, num_servers=90)),
+         ("swap", "servers", "bias"), True))
+    for label, space, moves, robust in spaces:
+        name = (f"phase 13a design {label} {DESIGN_BUDGET['rounds']} "
+                f"rounds x fleet {DESIGN_BUDGET['fleet']} x runs "
+                f"{DESIGN_BUDGET['runs']}" + (", robust" if robust else ""))
+        eng = engine_mod.DualEngine(iters=DESIGN_ITERS, tol=1e-3)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = design.optimize(space, engine=eng, moves=moves, seed=0,
+                              robust=robust, **DESIGN_BUDGET)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = record_path(name, runs, ["minplus_acc"])
+        s = res.stats
+        if not (res.best.lb >= res.reference.lb - 1e-6
+                and 0 < res.best.lb <= res.best.ub):
+            raise SystemExit(f"chip_smoke: {name}: best lb {res.best.lb} "
+                             f"(ub {res.best.ub}) below the recipe's "
+                             f"{res.reference.lb}")
+        if s["search_executes"] != 1 + DESIGN_BUDGET["rounds"] or \
+                len(s["last_plan"]["compile_keys"]) != 1 or \
+                (robust and not s["robust"]["executes"]):
+            raise SystemExit(f"chip_smoke: {name}: executes or compile keys "
+                             f"off: {s}")
+        row = {"space": label, "n": res.reference.cand.topo.n,
+               "wall_s": wall, "recipe_lb": res.reference.lb,
+               "recipe_ub": res.reference.ub, "best_lb": res.best.lb,
+               "best_ub": res.best.ub,
+               "design_gain_pct": 100.0 * (res.best.lb / res.reference.lb
+                                           - 1),
+               "executes": s["executes"],
+               "search_executes": s["search_executes"],
+               "compile_keys": s["compile_keys"],
+               "instances_per_round": s["instances_per_round"],
+               "robust": s["robust"], "history": res.history,
+               "launches": run["launches"]}
+        log(json.dumps({"phase": "13a", **row}))
+        out[label] = row
+
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            os.cpu_count() or 4, mp_context=ctx) as pool:
+        highs = PooledLP(pool, lp, engine_mod.ThroughputResult)
+        name = "phase 13b fig11 d_a=d_i=10, 5 runs, designed column"
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        rows = figures.fig11(sizes=[(10, 10)], runs=5, engine=highs,
+                             device="cuda")
+        wall = time.perf_counter() - t0
+        run = record_path(name, runs, ["minplus_acc"])
+        perm, stride = rows
+        if list(perm) != FIG11_KEYS or perm["traffic"] != "permutation" or \
+                stride["designed_tors"] is not None or \
+                not perm["designed_tors"] >= 1:
+            raise SystemExit(f"chip_smoke: {name}: bad rows: {rows}")
+        # the designer's first probe again (the same search, deterministic
+        # on the card): its certified pick never falls below the recipe
+        # on its own traffic samples, and the designed count reaches the
+        # recipe's exactly when that pick also holds the figure's held-out
+        # permutations (the search scores on 3 samples of its own)
+        spec = vl2.VL2Spec(d_a=10, d_i=10, servers_per_tor=20)
+        n_tor = perm["rewired_tors"]
+        t1 = time.perf_counter()
+        probe = design.optimize(
+            design.VL2Space(spec, n_tor), moves=("swap",), seed=2,
+            engine=engine_mod.DualEngine(iters=200, tol=1e-3), rounds=2,
+            fleet=6, runs=3)
+        held = {}
+        for key, topo in (("pick", probe.best.cand.topo),
+                          ("recipe", probe.reference.cand.topo)):
+            dems = [traffic.random_permutation(topo.servers, 2 + 17 + r)
+                    for r in range(5)]
+            held[key] = [r.throughput for r in
+                         highs.solve_batch([topo] * 5, dems)]
+        probe_s = time.perf_counter() - t1
+    pick_holds = min(held["pick"]) >= 1 - 1e-6
+    reaches = perm["designed_tors"] >= perm["rewired_tors"]
+    out["fig11"] = {
+        "rows": rows, "wall_s": wall, "launches": run["launches"],
+        "designed_at_least_rewired": reaches,
+        "probe_at_rewired": {
+            "n_tor": n_tor, "pick_lb": probe.best.lb,
+            "pick_ub": probe.best.ub, "recipe_lb": probe.reference.lb,
+            "recipe_ub": probe.reference.ub,
+            "pick_is_recipe": probe.best.cand is probe.reference.cand,
+            "heldout_theta_pick": held["pick"],
+            "heldout_theta_recipe": held["recipe"], "seconds": probe_s}}
+    log(json.dumps({"phase": "13b", **out["fig11"]}))
+    if not (probe.best.lb >= probe.reference.lb
+            and min(held["recipe"]) >= 1 - 1e-6 and reaches == pick_holds):
+        raise SystemExit(f"chip_smoke: {name}: the designed column is not "
+                         "what its searches give: "
+                         f"{out['fig11']['probe_at_rewired']}")
     return out
 
 
@@ -1050,7 +1494,39 @@ def _leaves(tree):
         yield tree
 
 
+def phases_11_to_13(card, graphs, kell, lp, traffic, het, figures, topo512,
+                    timed, runs) -> None:
+    """Phases 11-13 in order, each with its wall on the host clock."""
+    # phase 11: the streamed ELL closure at scale (K3 route l2)
+    t0 = time.perf_counter()
+    probe = phase_scale_probe(graphs, kell, runs)
+    timed["ell_relax_round"]["shapes"]["l2 streamed"] = probe["k3"]
+    log(f"{card}: phase 11 scale probe N={PROBE_N} "
+        f"{probe['b']['wall_s']:.2f} s, peak device "
+        f"{probe['b']['peak_device_bytes'] / 2**20:.1f} MiB (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # phase 12: adversarial traffic (K1 on two_cluster, K3 slab at N=512)
+    t0 = time.perf_counter()
+    adv = phase_adversarial(graphs, lp, traffic, topo512, runs)
+    log(f"{card}: phase 12 adversarial two_cluster "
+        f"{adv['a']['instances_per_s']:.2f} instances/s, RRG(512,16) "
+        f"{adv['b']['instances_per_s']:.2f} instances/s (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # phase 13: the design layer and Fig. 11's designed column (K1)
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.core import vl2
+    t0 = time.perf_counter()
+    designed = phase_design(het, vl2, figures, lp, traffic, engine_mod, runs)
+    log(f"{card}: phase 13 design vl2 {designed['vl2']['wall_s']:.1f} s, "
+        f"two_class {designed['two_class']['wall_s']:.1f} s, fig11 "
+        f"{designed['fig11']['wall_s']:.1f} s (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     from repro_torch.core import bounds, get_engine, graphs, lp, traffic
@@ -1166,16 +1642,30 @@ def main() -> None:
                                 odems, exact, runs)
     log(f"phase 9 (certified) wall {time.perf_counter() - t0:.1f} s")
 
-    # phase 10: Fig. 5 at paper scale through the figure layer
+    # phase 10: Fig. 5 at paper scale through the figure layer; its HiGHS
+    # LPs run in LP_WORKERS processes beside phases 11-13
+    import concurrent.futures
+    import multiprocessing
     from repro_torch.core import heterogeneous as het
     from repro_torch.core.engine import CertifiedEngine
     from repro_torch.launch import figures
-    t0 = time.perf_counter()
-    fig5 = phase_figure(lp, het, figures, CertifiedEngine, runs)
-    log(f"{card}: phase 10 fig5 paper {fig5['instances_per_s']:.2f} "
-        f"instances/s (phase wall {time.perf_counter() - t0:.1f} s)")
+    lp_pool = concurrent.futures.ProcessPoolExecutor(
+        LP_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        t0 = time.perf_counter()
+        fig5, held = phase_figure(lp, het, figures, CertifiedEngine, runs,
+                                  lp_pool)
+        log(f"{card}: phase 10 fig5 paper {fig5['instances_per_s']:.2f} "
+            f"instances/s (phase wall {time.perf_counter() - t0:.1f} s)")
+        phases_11_to_13(card, graphs, kell, lp, traffic, het, figures,
+                        topos[0], timed, runs)
+        t0 = time.perf_counter()
+        check_figure(fig5, held)
+        log(f"phase 10 HiGHS waited {time.perf_counter() - t0:.1f} s")
+    finally:
+        lp_pool.shutdown(cancel_futures=True)
 
-    # phase 11: summary
+    # phase 14: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "
@@ -1206,7 +1696,8 @@ def main() -> None:
                 continue
             run_entry = {"path": run["path"], "launches": n,
                          "steps": run["steps"],
-                         "launches_per_step": n / run["steps"]}
+                         "launches_per_step": (n / run["steps"]
+                                               if run["steps"] else None)}
             by_site = {k.split("/", 1)[1]: v for k, v in run["sites"].items()
                        if k.startswith(name + "/")}
             if by_site:
@@ -1239,6 +1730,7 @@ def main() -> None:
         arch: {k: r[k] for k in ("prefill_tok_per_s", "decode_tok_per_s",
                                  "prefill_s", "decode_s", "peak_gb")}
         for arch, r in served.items()}, "card": card}))
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

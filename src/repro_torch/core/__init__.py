@@ -1,7 +1,8 @@
 """The port's throughput engines: graphs and traffic (numpy), the HiGHS
 oracle (scipy), the APSP backends, the dual descent and the Frank–Wolfe
-primal (torch), BatchPlan and the engine registry, and the Fig. 1–11
-layer on top (bounds, decompose, heterogeneous, vl2, fabric).
+primal (torch), BatchPlan and the engine registry, the worst-case traffic
+search (adversarial), and the Fig. 1–11 layer on top (bounds, decompose,
+heterogeneous, vl2, fabric).  The design layer is ``repro_torch.design``.
 
     from repro_torch.core import Topology, get_engine, graphs, traffic
 
@@ -11,11 +12,11 @@ layer on top (bounds, decompose, heterogeneous, vl2, fabric).
     get_engine("certified", device="cpu").solve(topo, dem)  # plain versions
 """
 from repro_torch.core import (  # noqa: F401
-    apsp, bounds, decompose, engine, fabric, graphs, heterogeneous, lp, mcf,
+    adversarial, apsp, bounds, decompose, engine, fabric, graphs, heterogeneous, lp, mcf,
     plan, primal, traffic, vl2,
 )
 from repro_torch.core.engine import (  # noqa: F401
-    CertifiedEngine, DualEngine, ExactLPEngine, PrimalEngine, Sweep,
+    AdversarialEngine, CertifiedEngine, DualEngine, ExactLPEngine, PrimalEngine, Sweep,
     SweepPoint, ThroughputEngine, ThroughputResult, as_engine, get_engine,
     run_sweep, run_sweeps,
 )

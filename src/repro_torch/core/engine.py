@@ -10,8 +10,10 @@
 * ``CertifiedEngine`` — the same program reported as a bracket:
   ``meta["lb"]`` / ``meta["ub"]`` / ``meta["gap"]``.
 * ``AutoEngine`` — exact LP for small instances, the dual beyond.
+* ``AdversarialEngine`` — the worst-case TM search
+  (``repro_torch.core.adversarial``) reported as a bracket.
 * ``get_engine("exact" | "dual" | "dual-pallas" | "primal" | "certified" |
-  "auto")`` and
+  "auto" | "adversarial")`` and
   ``as_engine``.  The names are the reference's: ``"dual-pallas"`` is the
   dual descent whose APSP is repeated squaring on the hand-written
   tropical kernel (K1).
@@ -19,8 +21,9 @@
   whole family through one ``solve_batch``; on a bracket engine each
   ``SweepPoint`` carries ``lb_mean`` / ``gap_max``.
 
-The planned engines take ``device`` (default ``"cuda"``; without a card
-they raise unless ``device="cpu"`` is asked for).
+The planned engines and the adversarial one take ``device`` (default
+``"cuda"``; without a card they raise unless ``device="cpu"`` is asked
+for).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import apsp as apsp_mod
+from repro_torch.core import adversarial as adversarial_mod
 from repro_torch.core import lp, mcf, primal
 from repro_torch.core import traffic as traffic_mod
 from repro_torch.core.graphs import Topology, as_cap
@@ -38,7 +42,7 @@ from repro_torch.core.plan import BatchPlan, InstanceSolve, bucket_size
 
 __all__ = ["ThroughputResult", "ThroughputEngine", "ExactLPEngine",
            "DualEngine", "PrimalEngine", "CertifiedEngine", "AutoEngine",
-           "ENGINES", "get_engine", "as_engine", "bucket_size", "SweepPoint",
+           "AdversarialEngine", "ENGINES", "get_engine", "as_engine", "bucket_size", "SweepPoint",
            "Sweep", "run_sweep", "run_sweeps"]
 
 
@@ -352,6 +356,41 @@ class AutoEngine:
         return out
 
 
+class AdversarialEngine:
+    """Worst-case-traffic evaluation: ``solve(topo, dem)`` searches the hose
+    polytope for the demand that minimises the topology's throughput
+    (``adversarial.find_worst_tm``), with ``dem`` (when given) as the
+    baseline in lane 0 of every round.  ``bound="bracket"``:
+    ``throughput`` is the certified upper bound of the worst TM found;
+    ``meta`` carries ``lb`` / ``ub`` / ``gap``, the TM (``meta["tm"]``),
+    the baseline's bracket, ``uniform_gap_pct`` and the search stats.
+
+    Ctor kwargs go to ``find_worst_tm`` (``rounds``, ``candidates``,
+    ``lr_tm``, the inner solver's knobs, ``device``).  ``batches=False``:
+    batching happens inside a search (one ``BatchPlan.execute`` over the
+    candidates a round), not across topologies."""
+
+    name = "adversarial"
+    batches = False
+
+    def __init__(self, **search_kw):
+        self.search_kw = search_kw
+
+    def solve(self, topo, dem=None, *, seed: int = 0) -> ThroughputResult:
+        res = adversarial_mod.find_worst_tm(
+            topo, seed=seed, baseline=dem, **self.search_kw)
+        return _bracket(res.lb, res.ub,
+                        {"tm": res.tm,
+                         "uniform_gap_pct": res.uniform_gap_pct,
+                         "baseline_lb": res.baseline_lb,
+                         "baseline_ub": res.baseline_ub,
+                         **res.stats}, self.name)
+
+    def solve_batch(self, topos, dems) -> list[ThroughputResult]:
+        _check_batch_lengths(topos, dems)
+        return [self.solve(t, d) for t, d in zip(topos, dems)]
+
+
 ENGINES: dict[str, Callable[..., ThroughputEngine]] = {
     "exact": ExactLPEngine,
     "dual": DualEngine,
@@ -359,6 +398,7 @@ ENGINES: dict[str, Callable[..., ThroughputEngine]] = {
     "primal": PrimalEngine,
     "certified": CertifiedEngine,
     "auto": AutoEngine,
+    "adversarial": AdversarialEngine,
 }
 
 

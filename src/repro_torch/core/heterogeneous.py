@@ -20,9 +20,9 @@ engine (``get_engine("certified")``) every returned ``SweepPoint`` also
 carries ``lb_mean``/``gap_max`` — the certified lower-bound mean and the
 worst relative bracket width across the point's runs.
 
-The sweeps replay the paper's *recipes*.  The reference's
-``optimize_spec`` (a fleet search over the same pool) needs the design
-layer, which the port does not have yet; it arrives with it.
+The sweeps replay the paper's *recipes*; ``optimize_spec`` runs the
+paper's *method* — a fleet search over the same pool via
+``repro_torch.design`` (one ``BatchPlan.execute`` per round).
 """
 from __future__ import annotations
 
@@ -40,6 +40,7 @@ __all__ = [
     "TwoClassSpec",
     "throughput",
     "build_two_class",
+    "optimize_spec",
     "server_distribution_sweep",
     "power_law_beta_sweep",
     "cross_cluster_sweep",
@@ -144,6 +145,28 @@ def build_two_class(spec: TwoClassSpec, servers_on_large: int,
     # server_nodes: the server-expanded view (one degree-1 leaf per server);
     # planning engines coarsen it back onto this switch graph by default
     return topo.with_server_nodes() if server_nodes else topo
+
+
+def optimize_spec(spec: TwoClassSpec, *, engine=None,
+                  moves: Sequence[str] = ("swap", "servers", "bias"),
+                  rounds: int = 4, fleet: int = 12, elite: int = 4,
+                  runs: int = 2, seed: int = 0, demand_fn=None):
+    """Search the two-class pool for a high-throughput design instead of
+    replaying the paper's recipe: a fleet of candidate wirings per round
+    (degree-preserving edge swaps + server re-distribution + cross-bias
+    perturbation over ``build_two_class``), each round ONE
+    ``BatchPlan.execute``, final elites certified with the primal solver.
+    Returns a ``repro_torch.design.DesignResult``: ``best`` (certified-best
+    candidate, never below the proportional/bias-1.0 ``reference``),
+    ``elites``, per-round ``history``, plan/compile ``stats``, and a
+    resumable ``state``.  ``engine`` defaults to the designer's dual engine
+    on the card.  The grid sweeps above answer "what does the recipe
+    give"; this answers "what does the pool support"."""
+    from repro_torch.design import TwoClassSpace, optimize
+
+    return optimize(TwoClassSpace(spec), demand_fn=demand_fn, engine=engine,
+                    moves=moves, rounds=rounds, fleet=fleet, elite=elite,
+                    runs=runs, seed=seed)
 
 
 def server_distribution_sweep(spec: TwoClassSpec, xs: Sequence[float],

@@ -18,6 +18,11 @@ the reference.  Mixed sizes are padded up to a common size with per-lane
 ``n_valid``: padded nodes carry zero capacity and demand and ``_INF``
 edges, so they add nothing to the ratio or its gradient.
 
+``solve_dual_demgrad_batch`` is the same descent that also returns each
+lane's Danskin demand gradient at the final lengths l*: the final ratio's
+forward already holds dist_l*, so the gradient ``−dist_l*(s, t) / α`` on
+valid pairs costs no APSP beyond it and no backward.
+
 Entry points take ``device`` (default ``"cuda"``); without a card they
 raise unless the caller asks for ``"cpu"``.
 """
@@ -35,8 +40,9 @@ from repro_torch.core.graphs import (Topology, as_cap, connected_components,
                                      degree_stats)
 from repro_torch.device import resolve_device
 
-__all__ = ["DualResult", "DualBatchResult", "solve_dual",
-           "solve_dual_batch", "aspl", "drop_disconnected",
+__all__ = ["DualResult", "DualBatchResult", "DualDemgradBatchResult",
+           "solve_dual", "solve_dual_batch", "solve_dual_demgrad_batch",
+           "aspl", "drop_disconnected",
            "resolve_backend_density", "resolve_device", "_INF"]
 
 
@@ -66,6 +72,22 @@ class DualBatchResult:
 
     def __iter__(self):
         return iter(self.throughput_ub)
+
+
+@dataclasses.dataclass(frozen=True)
+class DualDemgradBatchResult:
+    """A batched dual solve with the demand gradient of each lane's
+    converged bound: ``dem_grad[b]`` is d(log D(l*) − log α(l*))/d dem at
+    the final lengths l*, ``−dist_l*(s, t) / α`` on valid pairs and 0 on
+    padded ones — a Danskin supergradient of log θ*(dem)."""
+
+    throughput_ub: np.ndarray   # [B] best certified dual bound per instance
+    final_ratio: np.ndarray     # [B] ratio at each instance's last iterate
+    iterations: np.ndarray      # [B] descent steps executed per instance
+    dem_grad: np.ndarray        # [B, N, N] d loss / d dem at the final l*
+
+    def __len__(self) -> int:
+        return len(self.throughput_ub)
 
 
 def resolve_backend_density(backend: str, caps, *, n: int,
@@ -147,20 +169,24 @@ def drop_disconnected(cap: Topology | np.ndarray,
 
 def _dual_ratio(z, cap, dem, edge_mask, pair_mask, eye, backend, d_max,
                 max_rounds):
-    """Per lane: (log-ratio loss, certified bound D(l)/alpha(l))."""
+    """Per lane: (log-ratio loss, certified bound D(l)/alpha(l), the
+    distances on valid pairs (0 elsewhere), alpha)."""
     l = torch.exp(z)
     w = torch.where(edge_mask, l, _INF)
     w = torch.where(eye, 0.0, w)
     dist = apsp_mod.apsp(w, backend, d_max, max_rounds)
-    alpha = (dem * torch.where(pair_mask, dist, 0.0)).sum(dim=(1, 2))
+    pair_dist = torch.where(pair_mask, dist, 0.0)
+    alpha = (dem * pair_dist).sum(dim=(1, 2))
     d_val = (cap * l * edge_mask).sum(dim=(1, 2))
-    return torch.log(d_val) - torch.log(alpha), d_val / alpha
+    return (torch.log(d_val) - torch.log(alpha), d_val / alpha, pair_dist,
+            alpha)
 
 
 def _descend(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
-             d_max, max_rounds):
+             d_max, max_rounds, demgrad=False):
     """Masked Adam descent over a batch of (possibly padded) instances.
-    Returns (best bound, final ratio, iterations) per lane."""
+    Returns (best bound, final ratio, iterations, demand gradient) per
+    lane; the gradient is None unless ``demgrad``."""
     bsz, nmax, _ = caps.shape
     dev = caps.device
     node_mask = torch.arange(nmax, device=dev)[None, :] < n_valid[:, None]
@@ -187,7 +213,7 @@ def _descend(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
         if i and i % check_every == 0 and bool(done.all()):
             break
         zg = z.detach().requires_grad_(True)
-        loss, ratio = ratio_of(zg)
+        loss, ratio, _, _ = ratio_of(zg)
         g, = torch.autograd.grad(loss.sum(), zg)
         with torch.no_grad():
             live = ~done
@@ -208,8 +234,38 @@ def _descend(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
                 done = done | (live & (rel_gain < tol))
                 ref_best = torch.where(live, best, ref_best)
     with torch.no_grad():
-        _, final = ratio_of(z)
-    return torch.minimum(best, final), final, it
+        _, final, pair_dist, alpha = ratio_of(z)
+        # d(log D - log alpha)/d dem: D does not depend on the demand
+        dem_grad = -pair_dist / alpha[:, None, None] if demgrad else None
+    return torch.minimum(best, final), final, it, dem_grad
+
+
+def _descend_batch(caps, dems, *, n_valid, iters, lr, tol, check_every,
+                   use_pallas, backend, d_max, mean_degree, max_rounds,
+                   device, demgrad):
+    """Host half of a batched solve: stack, resolve the backend and its
+    table stats, and run ``_descend`` on ``device``; None when empty."""
+    dev = resolve_device(device)
+    backend = normalize_backend(backend, use_pallas)
+    if len(caps) != len(dems):
+        raise ValueError(f"caps ({len(caps)}) and dems ({len(dems)}) "
+                         "must have equal length")
+    if len(caps) == 0:
+        return None
+    if not isinstance(caps, np.ndarray):
+        caps = np.stack([as_cap(c) for c in caps])
+    if not isinstance(dems, np.ndarray):
+        dems = np.stack([np.asarray(d) for d in dems])
+    if n_valid is None:
+        n_valid = np.full(caps.shape[0], caps.shape[1], np.int32)
+    backend, d_max = resolve_backend_density(
+        backend, caps, n=caps.shape[1], d_max=d_max, mean_degree=mean_degree)
+    return _descend(
+        torch.as_tensor(caps, dtype=torch.float32, device=dev),
+        torch.as_tensor(dems, dtype=torch.float32, device=dev),
+        torch.as_tensor(np.asarray(n_valid), dtype=torch.int32, device=dev),
+        iters=iters, lr=lr, tol=tol, check_every=check_every,
+        backend=backend, d_max=d_max, max_rounds=max_rounds, demgrad=demgrad)
 
 
 def solve_dual_batch(caps, dems, *, n_valid=None, iters: int = 800,
@@ -224,32 +280,47 @@ def solve_dual_batch(caps, dems, *, n_valid=None, iters: int = 800,
     sequences of equal size).  ``n_valid`` ([R] ints) marks each lane's
     real nodes.  ``block=False`` returns device tensors without the host
     copy (``BatchPlan.execute`` copies once after every chunk)."""
-    dev = resolve_device(device)
-    backend = normalize_backend(backend, use_pallas)
-    if len(caps) != len(dems):
-        raise ValueError(f"caps ({len(caps)}) and dems ({len(dems)}) "
-                         "must have equal length")
-    if len(caps) == 0:
+    out = _descend_batch(caps, dems, n_valid=n_valid, iters=iters, lr=lr,
+                         tol=tol, check_every=check_every,
+                         use_pallas=use_pallas, backend=backend, d_max=d_max,
+                         mean_degree=mean_degree, max_rounds=max_rounds,
+                         device=device, demgrad=False)
+    if out is None:
         return DualBatchResult(np.zeros(0, np.float32),
                                np.zeros(0, np.float32), np.zeros(0, np.int32))
-    if not isinstance(caps, np.ndarray):
-        caps = np.stack([as_cap(c) for c in caps])
-    if not isinstance(dems, np.ndarray):
-        dems = np.stack([np.asarray(d) for d in dems])
-    if n_valid is None:
-        n_valid = np.full(caps.shape[0], caps.shape[1], np.int32)
-    backend, d_max = resolve_backend_density(
-        backend, caps, n=caps.shape[1], d_max=d_max, mean_degree=mean_degree)
-    best, final, it = _descend(
-        torch.as_tensor(caps, dtype=torch.float32, device=dev),
-        torch.as_tensor(dems, dtype=torch.float32, device=dev),
-        torch.as_tensor(np.asarray(n_valid), dtype=torch.int32, device=dev),
-        iters=iters, lr=lr, tol=tol, check_every=check_every,
-        backend=backend, d_max=d_max, max_rounds=max_rounds)
+    best, final, it, _ = out
     if not block:
         return DualBatchResult(best, final, it)
     return DualBatchResult(best.cpu().numpy(), final.cpu().numpy(),
                            it.cpu().numpy())
+
+
+def solve_dual_demgrad_batch(caps, dems, *, n_valid=None, iters: int = 800,
+                             lr: float = 0.08, tol: float = 0.0,
+                             check_every: int = 25, use_pallas: bool = False,
+                             backend: str | None = None, block: bool = True,
+                             d_max: int | None = None,
+                             mean_degree: float | None = None,
+                             max_rounds: int | None = None,
+                             device: str | torch.device = "cuda"
+                             ) -> DualDemgradBatchResult:
+    """``solve_dual_batch`` plus each lane's demand gradient
+    ``dem_grad[B, N, N]`` (see ``DualDemgradBatchResult``): the adversarial
+    search's inner solve.  The descent is the plain dual's, bit for bit."""
+    out = _descend_batch(caps, dems, n_valid=n_valid, iters=iters, lr=lr,
+                         tol=tol, check_every=check_every,
+                         use_pallas=use_pallas, backend=backend, d_max=d_max,
+                         mean_degree=mean_degree, max_rounds=max_rounds,
+                         device=device, demgrad=True)
+    if out is None:
+        z = np.zeros(0, np.float32)
+        return DualDemgradBatchResult(z, z.copy(), np.zeros(0, np.int32),
+                                      np.zeros((0, 0, 0), np.float32))
+    best, final, it, g = out
+    if not block:
+        return DualDemgradBatchResult(best, final, it, g)
+    return DualDemgradBatchResult(best.cpu().numpy(), final.cpu().numpy(),
+                                  it.cpu().numpy(), g.cpu().numpy())
 
 
 def solve_dual(cap: Topology | np.ndarray, dem: np.ndarray, *,

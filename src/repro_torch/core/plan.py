@@ -1,8 +1,9 @@
 """BatchPlan — planning and execution of batched solves (the port of
 ``repro.core.plan``): ``execute(solver="dual")`` runs the dual descent
-(``mcf``), ``execute(solver="primal")`` the Frank–Wolfe primal
-(``primal``, a certified lower bound with the dual's upper bound) over
-the same buckets and chunks.
+(``mcf``), ``execute(solver="dual-demgrad")`` the same descent with each
+lane's demand gradient, ``execute(solver="primal")`` the Frank–Wolfe
+primal (``primal``, a certified lower bound with the dual's upper bound)
+over the same buckets and chunks.
 
 1. **Buckets** — instances are grouped by padded node count
    (``bucket_size``) and padded to their bucket's largest member; padded
@@ -112,6 +113,13 @@ def _dispatch_dual(capp, demp, n_valid, solver_kw):
             "iterations": r.iterations}
 
 
+def _dispatch_dual_demgrad(capp, demp, n_valid, solver_kw):
+    r = mcf.solve_dual_demgrad_batch(capp, demp, n_valid=n_valid,
+                                     block=False, **solver_kw)
+    return {"value": r.throughput_ub, "final_ratio": r.final_ratio,
+            "iterations": r.iterations, "dem_grad": r.dem_grad}
+
+
 def _dispatch_primal(capp, demp, n_valid, solver_kw):
     r = primal.solve_primal_batch(capp, demp, n_valid=n_valid, block=False,
                                   **solver_kw)
@@ -122,7 +130,8 @@ def _dispatch_primal(capp, demp, n_valid, solver_kw):
 # chunk dispatchers by solver name: (capp, demp, n_valid, solver_kw) ->
 # dict of per-lane device tensors; "value" is the headline bound, every
 # other key is copied into the per-instance meta
-SOLVERS = {"dual": _dispatch_dual, "primal": _dispatch_primal}
+SOLVERS = {"dual": _dispatch_dual, "primal": _dispatch_primal,
+           "dual-demgrad": _dispatch_dual_demgrad}
 
 
 class BatchPlan:
@@ -228,7 +237,9 @@ class BatchPlan:
                 device: str | torch.device = "cuda",
                 **solver_kw) -> list[InstanceSolve]:
         """Run every chunk on ``device``, copy the results to the host
-        once, and scatter them back into input order.  ``solver_kw`` goes
+        once, and scatter them back into input order.  ``solver`` names a
+        ``SOLVERS`` entry ("dual", "dual-demgrad": ``meta["dem_grad"]`` is
+        each lane's demand gradient, or "primal").  ``solver_kw`` goes
         to the solver (iters/lr/tol/check_every/use_pallas/backend/d_max/
         max_rounds); where the backend can land on ``"ell-bf"`` and no
         table stats were given, each chunk gets its own density hints."""
@@ -255,16 +266,27 @@ class BatchPlan:
         out: list[InstanceSolve | None] = [None] * len(self.caps)
         for ci, (chunk, arrs) in enumerate(zip(self.chunks, host)):
             for lane, i in enumerate(chunk.indices):
-                solved = {k: (int(a[lane]) if k == "iterations"
-                              else float(a[lane]))
-                          for k, a in arrs.items() if k != "value"}
+                # per-lane scalars become floats (iterations: int); a
+                # per-lane array (dual-demgrad's [n, n] demand gradient)
+                # is cropped to the instance's own node count
+                n = int(self.caps[i].shape[0])
+                solved = {}
+                for k, a in arrs.items():
+                    if k == "value":
+                        continue
+                    if k == "iterations":
+                        solved[k] = int(a[lane])
+                    elif a[lane].ndim == 0:
+                        solved[k] = float(a[lane])
+                    else:
+                        solved[k] = a[lane][(slice(n),) * a[lane].ndim]
                 out[i] = InstanceSolve(
                     value=float(arrs["value"][lane]),
                     iterations=int(arrs["iterations"][lane]),
                     meta={**solved,
                           "bucket": chunk.bucket,
                           "padded_n": chunk.padded_n,
-                          "nodes": int(self.caps[i].shape[0]),
+                          "nodes": n,
                           "batch_size": len(chunk.indices),
                           "chunk": ci, "chunks": len(self.chunks),
                           "devices": self.devices, "plan": dict(stats)})

@@ -1,5 +1,6 @@
 """Traffic matrices (paper §3, §8.1); a copy of ``repro.core.traffic``
-without the ``"adversarial"`` pattern.
+whose ``"adversarial"`` pattern runs the port's worst-case search
+(``repro_torch.core.adversarial``).
 
 All traffic is specified at server level and aggregated to a switch-level
 demand matrix ``dem[N, N]`` where dem[u, v] = number of unit-demand server
@@ -19,6 +20,7 @@ __all__ = [
     "all_to_all",
     "all_to_one",
     "stride",
+    "adversarial",
     "num_flows",
 ]
 
@@ -146,6 +148,29 @@ def stride(servers: np.ndarray, frac: float, seed: int) -> np.ndarray:
     return dem
 
 
+def adversarial(servers: np.ndarray, seed: int, *, topo=None,
+                **search_kw) -> np.ndarray:
+    """Near-worst-case hose-feasible demand matrix for a SPECIFIC topology.
+
+    Unlike every other pattern, adversarial traffic is a property of the
+    (topology, servers) pair, not of ``servers`` alone: the worst TM is
+    found by gradient descent ON throughput through the differentiable
+    dual solve (``repro_torch.core.adversarial.find_worst_tm``).  Pass the
+    topology via the ``topo=`` keyword; ``search_kw`` forwards the search
+    knobs (rounds / candidates / iters / device / ...).  Raises
+    ``ValueError`` without a topology — there is no topology-free worst
+    case.
+    """
+    if topo is None:
+        raise ValueError(
+            "traffic pattern 'adversarial' needs the topology it attacks: "
+            "traffic.make('adversarial', servers, seed, topo=topo).  The "
+            "worst-case TM is a property of the wiring, not of the server "
+            "counts alone.")
+    from repro_torch.core.adversarial import find_worst_tm  # lazy: a cycle
+    return find_worst_tm(topo, seed=seed, **search_kw).tm
+
+
 def num_flows(dem: np.ndarray) -> float:
     """Number of (unit-demand) flows in the demand matrix."""
     return float(dem.sum())
@@ -155,13 +180,15 @@ def num_flows(dem: np.ndarray) -> float:
 # Every entry has the uniform signature (servers, seed, **pattern_kw) ->
 # dem[N, N] so sweep drivers can stay pattern-agnostic; unknown keyword
 # arguments raise TypeError rather than being silently ignored.
-# Deterministic patterns ignore the seed.  The reference's "adversarial"
-# pattern is not ported yet: it needs the worst-case TM search.
+# Deterministic patterns ignore the seed.  "adversarial" additionally
+# needs the topology it attacks (kw: ``topo=``) — see ``adversarial``.
 PATTERNS = {
     "permutation": lambda servers, seed: random_permutation(servers, seed),
     "all_to_all": lambda servers, seed: all_to_all(servers),
     "all_to_one": lambda servers, seed: all_to_one(servers, seed),
     "stride": lambda servers, seed, frac=1.0: stride(servers, frac, seed),
+    "adversarial": lambda servers, seed, **kw: adversarial(servers, seed,
+                                                           **kw),
 }
 
 
@@ -169,7 +196,7 @@ def make(name: str, servers: np.ndarray, seed: int = 0, **kw) -> np.ndarray:
     """Build the named traffic pattern's switch-level demand matrix.
 
     Known names: permutation, all_to_all, all_to_one, stride (kw:
-    ``frac``).
+    ``frac``), adversarial (kw: ``topo`` + search knobs).
     """
     try:
         fn = PATTERNS[name]

@@ -25,15 +25,24 @@ gathers them from device memory (L2).  Each launch counts under
 ``ell_relax_round/route:<route>`` in ``_build.SITE_LAUNCHES``.
 ``ell_relax_round`` picks by device: the kernel for CUDA tensors,
 ``ell_relax_round_plain`` for CPU tensors.
+
+``ell_bf_apsp_streamed`` is the closure at scale: source blocks of one
+graph's [N, block] carry go through the same Jacobi rounds one after the
+other, and each converged block lands in one host [N, N] array, so the
+device holds the tables and two [N, block] carries, never N².  A round
+relaxes every source column on its own, so each column converges to the
+bits the full closure gives it.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import _build
 
 __all__ = ["ell_relax_round", "ell_relax_round_plain", "ell_bf_apsp",
-           "ell_route", "ROUTES", "TILE", "SPAN"]
+           "ell_bf_apsp_streamed", "ell_route", "ROUTES", "TILE", "SPAN"]
 
 _INF = 1.0e18   # == repro_torch.core.apsp._INF (non-edge sentinel)
 TILE = 8        # targets per changed flag (a warp's tile of targets)
@@ -147,6 +156,19 @@ def _full_init(idx: torch.Tensor, wgt: torch.Tensor) -> torch.Tensor:
     return m0
 
 
+def _fixpoint(m: torch.Tensor, idx: torch.Tensor, wgt: torch.Tensor,
+              max_rounds: int) -> tuple[torch.Tensor, int]:
+    """Jacobi rounds on carry ``m`` until no flag is set (one host read a
+    round) or ``max_rounds``: ``(m, rounds)``."""
+    rounds = 0
+    changed = True
+    while changed and rounds < max_rounds:
+        m, flags = ell_relax_round(m, idx, wgt)
+        rounds += 1
+        changed = bool(flags.any())
+    return m, rounds
+
+
 def ell_bf_apsp(idx: torch.Tensor, wgt: torch.Tensor, *,
                 max_rounds: int | None = None
                 ) -> tuple[torch.Tensor, int]:
@@ -156,13 +178,64 @@ def ell_bf_apsp(idx: torch.Tensor, wgt: torch.Tensor, *,
     (default N) is reached; lanes that converge early are fixed points of
     the later rounds.  Unreachable pairs stay ~``_INF``."""
     n = idx.shape[1]
+    m, rounds = _fixpoint(_full_init(idx, wgt), idx, wgt,
+                          n if max_rounds is None else max_rounds)
+    return m.transpose(1, 2), rounds
+
+
+def _block_init(idx: torch.Tensor, wgt: torch.Tensor, s0: int,
+                block: int) -> torch.Tensor:
+    """Transposed one-hop carry of sources [s0, s0 + block): ``_full_init``
+    restricted to those columns, m0[t, j] = w(s0 + j -> t), 0 at
+    (s0 + j, j)."""
+    bsz, n, _ = idx.shape
+    col = idx.long() - s0
+    inblk = (col >= 0) & (col < block)
+    m0 = torch.full((bsz, n, block), _INF, dtype=torch.float32,
+                    device=idx.device)
+    m0.scatter_reduce_(2, col.clamp(0, block - 1),
+                       torch.where(inblk, wgt, _INF), reduce="amin")
+    j = torch.arange(block, device=idx.device)
+    m0[:, s0 + j, j] = 0.0
+    return m0
+
+
+def ell_bf_apsp_streamed(idx, wgt, *, block: int = 1024,
+                         max_rounds: int | None = None,
+                         out: np.ndarray | None = None,
+                         device: str | torch.device = "cuda"
+                         ) -> tuple[np.ndarray, int]:
+    """All-pairs shortest paths of one ELL-packed graph (tables [N, d_max],
+    numpy or torch) streamed by source blocks: ``(d [N, N] float32 on the
+    host with d[s, t], the most rounds a block took)``.  Each block runs
+    its own Jacobi rounds on ``device`` (K3 on the card) until no flag is
+    set or ``max_rounds`` (default N), and is copied into ``out`` (a
+    float32 [N, N] array, allocated when not given).  The device holds the
+    tables and two [N, block] carries."""
+    dev = resolve_device(device)
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=dev)
+    wgt = torch.as_tensor(wgt, dtype=torch.float32, device=dev)
+    if idx.dim() != 2 or idx.shape != wgt.shape:
+        raise ValueError(f"ELL tables must be matching [N, d_max] arrays, "
+                         f"got idx {tuple(idx.shape)} / wgt "
+                         f"{tuple(wgt.shape)}")
+    n = idx.shape[0]
+    idx, wgt = idx[None].contiguous(), wgt[None].contiguous()
+    block = max(1, min(block, n))
+    if n % block:
+        raise ValueError(f"ell_bf_apsp_streamed: n={n} must be a multiple "
+                         f"of block={block}")
     if max_rounds is None:
         max_rounds = n
-    m = _full_init(idx, wgt)
-    rounds = 0
-    changed = True
-    while changed and rounds < max_rounds:
-        m, flags = ell_relax_round(m, idx, wgt)
-        rounds += 1
-        changed = bool(flags.any())
-    return m.transpose(1, 2), rounds
+    if out is None:
+        out = np.empty((n, n), np.float32)
+    elif out.shape != (n, n) or out.dtype != np.float32:
+        raise ValueError(f"out must be a float32 ({n}, {n}) array")
+    worst = 0
+    for s0 in range(0, n, block):
+        m, rounds = _fixpoint(_block_init(idx, wgt, s0, block), idx, wgt,
+                              max_rounds)
+        # m[t, j] = dist(s0 + j -> t): source-major rows of the output
+        torch.from_numpy(out[s0:s0 + block]).copy_(m[0].T)
+        worst = max(worst, rounds)
+    return out, worst

@@ -13,20 +13,21 @@ the HiGHS oracle, as their scripts do.
 Fig. 5 pools its three configurations into one ``run_sweeps`` call, so a
 batching engine solves the whole figure through one ``BatchPlan`` (the
 reference's script makes one plan per configuration; the rows are the
-same).  Fig. 11 leaves out the script's ``designed_tors`` and
-``designed_gain_pct`` columns: they come from the design layer's fleet
-search, which the port does not have yet.
+same).  Fig. 11's ``designed_tors`` and ``designed_gain_pct`` columns come
+from the design layer's fleet search (``vl2.designed_vl2_topology``), whose
+dual engine runs on the figure's ``device``.
 
     python -m repro_torch.launch.figures --only fig5 --engine certified \\
         --scale paper [--tol 1e-4] [--device cpu]
 
-prints one CSV block per figure and its wall seconds.  Planned engines run
-on the card unless ``--device cpu`` is given.
+prints one CSV block per figure and its wall seconds.  Planned engines and
+Fig. 11's designer run on the card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import csv
+import functools
 import inspect
 import sys
 import time
@@ -35,7 +36,8 @@ import numpy as np
 
 from repro_torch.core import bounds, decompose, graphs, lp, traffic, vl2
 from repro_torch.core import heterogeneous as het
-from repro_torch.core.engine import as_engine, get_engine, run_sweeps
+from repro_torch.core.engine import (DualEngine, as_engine, get_engine,
+                                    run_sweeps)
 
 __all__ = ["FIGURES", "fig1", "fig2", "fig3", "fig4", "fig5", "fig6", "fig7",
            "fig8", "fig9_10", "fig11", "rows_to_csv", "bracket_cols",
@@ -368,13 +370,24 @@ def fig9_10(scale: str = "small", *,
 
 
 def fig11(scale: str = "small", engine="exact", *, sizes=None,
-          runs=None) -> list[dict]:
+          runs=None, device="cuda") -> list[dict]:
     """VL2 rewired with the same equipment: ToRs supported at full
-    throughput under random-permutation and 100% stride traffic (the
-    recipe's columns; see the module docstring)."""
+    throughput under random-permutation and 100% stride traffic, by the
+    paper's recipe and, for permutation traffic, by the fleet optimizer's
+    wiring.  The designed search starts at the recipe's count (the recipe
+    is the designer's candidate 0), but the designer scores candidates on
+    3 traffic samples of its own, so its pick can fail the figure's
+    held-out permutations and the designed count fall below the
+    recipe's."""
     sizes = _by_scale(sizes, scale, [(4, 4), (6, 6), (8, 8)],
                       [(4, 4), (6, 6), (8, 8), (10, 10)])
     runs = _by_scale(runs, scale, 2, 5)
+    # benchmarks/fig11.py's designer: cheap dual ranking, small fleets, 3
+    # traffic samples (fewer let the search overfit its samples and lose
+    # ToRs on the figure's held-out criterion)
+    design_build = functools.partial(
+        vl2.designed_vl2_topology, rounds=2, fleet=6, runs=3,
+        engine=DualEngine(iters=200, tol=1e-3, device=device))
     rows = []
     for d_a, d_i in sizes:
         spec = vl2.VL2Spec(d_a=d_a, d_i=d_i, servers_per_tor=20)
@@ -388,11 +401,21 @@ def fig11(scale: str = "small", engine="exact", *, sizes=None,
                 spec, vl2.rewired_vl2_topology, lo=base,
                 hi=base + max(2, base // 2), runs=runs, seed0=2,
                 engine=engine, traffic_fn=tfn)
+            designed = None
+            if tname == "permutation":
+                designed = vl2.max_tors_at_full_throughput(
+                    spec, design_build, lo=best,
+                    hi=best + max(2, base // 2), runs=runs, seed0=2,
+                    engine=engine, traffic_fn=tfn)
             rows.append({
                 "figure": "fig11", "d_a": d_a, "d_i": d_i,
                 "traffic": tname,
                 "vl2_tors": base, "rewired_tors": best,
                 "gain_pct": 100.0 * (best - base) / base,
+                "designed_tors": designed,
+                "designed_gain_pct":
+                    None if designed is None
+                    else 100.0 * (designed - base) / base,
                 "vl2_servers": base * spec.servers_per_tor,
                 "rewired_servers": best * spec.servers_per_tor,
             })
@@ -416,7 +439,8 @@ def main(argv=None) -> dict[str, list[dict]]:
     ap.add_argument("--tol", type=float, default=0.0,
                     help="early-stop tolerance of a planned engine")
     ap.add_argument("--device", default="cuda",
-                    help="where a planned engine runs (cuda or cpu)")
+                    help="where a planned engine and Fig. 11's designer "
+                         "run (cuda or cpu)")
     args = ap.parse_args(argv)
     names = [s for s in args.only.split(",") if s]
     unknown = sorted(set(names) - set(FIGURES))
@@ -428,8 +452,10 @@ def main(argv=None) -> dict[str, list[dict]]:
     out = {}
     for name in names:
         fn = FIGURES[name]
-        fkw = ({"engine": engine}
-               if "engine" in inspect.signature(fn).parameters else {})
+        params = inspect.signature(fn).parameters
+        fkw = ({"engine": engine} if "engine" in params else {})
+        if "device" in params:
+            fkw["device"] = args.device
         t0 = time.perf_counter()
         out[name] = fn(args.scale, **fkw)
         print(f"# {name}: {len(out[name])} rows, "

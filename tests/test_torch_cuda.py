@@ -301,6 +301,67 @@ def test_cuda_ell_bf_closure_on_route_l2(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,route,block", [(2048, "l2", 1024),
+                                           (512, "slab", 128)])
+def test_cuda_streamed_ell_closure_equals_full(cuda, n, route, block):
+    """Source blocks streamed through K3 give the full closure's bits and
+    rounds, on each route; every launch is counted on the route."""
+    w = _lanes(n, 1, p=12.0 / n).to(cuda)
+    d_max = int(((w < _INF / 2).sum(dim=1) - 1).max())
+    assert p_ell.ell_route(n, d_max) == route
+    idx, wgt = p_apsp._pack_ell(w, d_max)
+    full, rounds = p_ell.ell_bf_apsp(idx, wgt)
+    _build.reset_launches()
+    got, got_rounds = p_ell.ell_bf_apsp_streamed(idx[0], wgt[0],
+                                                 block=block)
+    launches = _build.LAUNCHES["ell_relax_round"]
+    assert launches >= n // block * 2
+    assert _build.SITE_LAUNCHES[f"ell_relax_round/route:{route}"] == launches
+    assert got_rounds == rounds
+    assert np.array_equal(got, full[0].cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_cuda_dual_demgrad_matches_cpu(cuda):
+    """The demand-gradient solve on the card (K1 squaring) against the same
+    solve on the CPU.  Before any step the lengths are 1 and the gradient
+    is −hops/α on both, equal but for α's sum order.  After a descent the
+    bounds agree within rel 1e-3, but the lengths do not: Adam's float32
+    exp, sqrt and sums round differently on the two devices, and on edges
+    whose gradient is near 0 Adam's normalised step follows the sign of
+    that rounding, so lengths the bound does not pin (the dual optimum is
+    not unique) wander apart, and the distances through them with them.
+    There each device's gradient is held to its own identity, Σ dem·g =
+    −α/α = −1."""
+    from repro_torch.core import graphs, mcf, traffic
+    caps = np.zeros((3, 40, 40), np.float32)
+    dems = np.zeros((3, 40, 40), np.float32)
+    nv = np.array([24, 32, 40], np.int32)
+    for s, n in enumerate(nv):
+        t = graphs.random_regular_graph(int(n), 4, seed=s, servers=3)
+        caps[s, :n, :n] = t.cap
+        dems[s, :n, :n] = traffic.make("permutation", t.servers, seed=s + 1)
+    for iters in (0, 60):
+        kw = dict(n_valid=nv, iters=iters, backend="squaring")
+        _build.reset_launches()
+        card = mcf.solve_dual_demgrad_batch(caps, dems, **kw)
+        assert _build.LAUNCHES["minplus_acc"] > 0
+        cpu = mcf.solve_dual_demgrad_batch(caps, dems, device="cpu", **kw)
+        np.testing.assert_allclose(card.throughput_ub, cpu.throughput_ub,
+                                   rtol=1e-3)
+        np.testing.assert_allclose(card.final_ratio, cpu.final_ratio,
+                                   rtol=1e-3)
+        if iters == 0:
+            np.testing.assert_allclose(card.dem_grad, cpu.dem_grad,
+                                       rtol=1e-6)
+        np.testing.assert_allclose((dems * card.dem_grad).sum(axis=(1, 2)),
+                                   -1.0, rtol=1e-5)
+        for g, n in zip(card.dem_grad, nv):
+            assert np.all(g[n:] == 0) and np.all(g[:, n:] == 0)
+            assert np.all(g[:n, :n][~np.eye(n, dtype=bool)] < 0)
+
+
+@pytest.mark.cuda
 def test_cuda_apsp_backends_and_subgradients_agree(cuda):
     w = _lanes(96, 3, p=0.1).to(cuda)
     d_max = int(((w < _INF / 2).sum(dim=1) - 1).max())

@@ -135,8 +135,9 @@ def test_run_sweep_matches_reference_on_exact_engine():
     b = p_engine.run_sweep(sweep, build(p_graphs), "exact")
     assert [(x.x, x.mean, x.values) for x in a] == \
         [(y.x, y.mean, y.values) for y in b]
-    assert sorted(p_engine.ENGINES) == ["auto", "certified", "dual",
-                                        "dual-pallas", "exact", "primal"]
+    assert sorted(p_engine.ENGINES) == ["adversarial", "auto", "certified",
+                                        "dual", "dual-pallas", "exact",
+                                        "primal"]
     assert p_engine.get_engine("dual-pallas").name == "dual-pallas"
     with pytest.raises(ValueError, match="unknown engine"):
         p_engine.get_engine("ecmp")

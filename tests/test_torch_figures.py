@@ -184,8 +184,8 @@ def _script_row_keys(module) -> list[str]:
 def test_figure_functions_give_the_reference_row_keys():
     """Each port figure at a reduced size, on a real engine (the certified
     engine for Fig. 5-7, so their bracket column is there), gives the
-    reference figure script's row keys (Fig. 11 without the design layer's
-    ``designed_*`` columns)."""
+    reference figure script's row keys (Fig. 11 with the design layer's
+    ``designed_*`` columns, filled for permutation traffic only)."""
     assert _script_row_keys(r_fig5)[-1] == "gap"
     spec = p_het.TwoClassSpec(**_SPEC)
     cert = p_engine.get_engine("certified", iters=40, device="cpu")
@@ -204,24 +204,24 @@ def test_figure_functions_give_the_reference_row_keys():
         "fig8": figures.fig8(spec=spec, biases=(1.0,), runs=1),
         "fig9_10": figures.fig9_10(biases=(1.0,), runs=1,
                                    specs={"uniform": spec}),
-        "fig11": figures.fig11(sizes=[(4, 4)], runs=1),
+        "fig11": figures.fig11(sizes=[(4, 4)], runs=1, device="cpu"),
     }
     scripts = {"fig1": r_fig1, "fig2": r_fig2, "fig3": r_fig3,
                "fig4": r_fig4, "fig5": r_fig5, "fig6": r_fig6,
                "fig7": r_fig7, "fig8": r_fig8, "fig9_10": r_fig9_10,
                "fig11": r_fig11}
     assert list(port) == list(figures.FIGURES) == list(scripts)
-    designed = {"designed_tors", "designed_gain_pct"}
-    assert designed <= set(_script_row_keys(r_fig11))
     for name, rows in port.items():
-        want = [k for k in _script_row_keys(scripts[name])
-                if k not in designed]
+        want = _script_row_keys(scripts[name])
         assert rows and all(list(r) == want for r in rows), name
         assert all(r["figure"].startswith(name[:4]) for r in rows)
     for row in port["fig5"] + port["fig6"] + port["fig7"]:
         assert 0 <= row["gap"] < 1
     assert [r["traffic"] for r in port["fig11"]] == ["permutation",
                                                      "stride100"]
+    perm, stride = port["fig11"]
+    assert perm["designed_tors"] >= perm["rewired_tors"]
+    assert stride["designed_tors"] is None
 
 
 def test_figures_command_line(monkeypatch, capsys):
@@ -249,3 +249,20 @@ def test_figures_command_line(monkeypatch, capsys):
     assert "fig5,1.0000,0.5000" in text
     with pytest.raises(SystemExit):
         figures.main(["--only", "fig12"])
+
+
+def test_figures_command_line_gives_fig11_its_device(monkeypatch, capsys):
+    """``--device`` reaches Fig. 11, whose designer runs a planned engine
+    whatever ``--engine`` names (a stand-in figure here)."""
+    calls = []
+
+    def fake(scale="small", engine="exact", *, device="cuda"):
+        calls.append((scale, engine, device))
+        return [{"figure": "fig11", "designed_tors": 7}]
+
+    monkeypatch.setitem(figures.FIGURES, "fig11", fake)
+    figures.main(["--only", "fig11", "--device", "cpu"])
+    [(scale, eng, device)] = calls
+    assert (scale, device) == ("small", "cpu")
+    assert isinstance(eng, p_engine.ExactLPEngine)
+    assert "figure,designed_tors" in capsys.readouterr().out

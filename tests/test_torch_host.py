@@ -96,8 +96,11 @@ def test_traffic_identical(pattern, kw):
 
 
 def test_traffic_adversarial_not_ported_yet():
-    assert "adversarial" not in p_traffic.PATTERNS
-    with pytest.raises(ValueError, match="unknown traffic pattern"):
+    """Named when the pattern was missing; it is ported now: the registry
+    has the reference's names, and "adversarial", like the reference's,
+    needs the topology it attacks (its search: test_torch_adversarial)."""
+    assert sorted(p_traffic.PATTERNS) == sorted(r_traffic.PATTERNS)
+    with pytest.raises(ValueError, match="topology it attacks"):
         p_traffic.make("adversarial", np.ones(4, np.int64), 0)
 
 

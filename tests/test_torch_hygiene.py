@@ -1,6 +1,7 @@
-"""Port hygiene: ``repro_torch`` and ``chip_smoke.py`` never import jax or
-the reference package, importing the port builds nothing, and entry points
-refuse to run quietly on the CPU when no card is present."""
+"""Port hygiene: ``repro_torch`` (``design/`` and ``core/adversarial.py``
+included) and ``chip_smoke.py`` never import jax or the reference package,
+importing the port builds nothing, and entry points refuse to run quietly
+on the CPU when no card is present."""
 import ast
 import pathlib
 import subprocess
@@ -11,8 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core import get_engine, graphs, mcf, traffic  # noqa: E402
+from repro_torch import design  # noqa: E402
+from repro_torch.core import (get_engine, graphs, heterogeneous, mcf,  # noqa: E402,E501
+                              traffic)
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ell as kell  # noqa: E402
 from repro_torch.launch import figures  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -46,7 +50,9 @@ def test_import_leaves_jax_out_of_the_process():
             "ell, repro_torch.kernels.fw, repro_torch.kernels.ops, "
             "repro_torch.core.primal, repro_torch.core.heterogeneous, "
             "repro_torch.core.vl2, repro_torch.core.fabric, "
-            "repro_torch.core.decompose, repro_torch.launch.figures\n"
+            "repro_torch.core.decompose, repro_torch.launch.figures, "
+            "repro_torch.core.adversarial, repro_torch.design, "
+            "repro_torch.design.optimizer\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -76,6 +82,19 @@ def test_entry_points_raise_without_a_card(monkeypatch):
             get_engine(name).solve_batch([topo], [dem])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         figures.main(["--only", "fig5", "--engine", "certified"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_engine("adversarial").solve(topo, dem)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        traffic.make("adversarial", topo.servers, seed=1, topo=topo)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mcf.solve_dual_demgrad_batch([topo.cap], [dem])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        design.optimize(design.TwoClassSpace(heterogeneous.TwoClassSpec(
+            n_large=3, k_large=12, n_small=7, k_small=5, num_servers=25)),
+            rounds=0, fleet=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kell.ell_bf_apsp_streamed(np.zeros((4, 1), np.int32),
+                                  np.zeros((4, 1), np.float32))
     assert mcf.resolve_device("cpu") == torch.device("cpu")
     assert mcf.aspl(topo, device="cpu") > 1.0
 

@@ -270,3 +270,56 @@ def test_ell_round_validates_tables():
         p_ell.ell_relax_round(m, idx.long(), wgt)
     with pytest.raises(ValueError, match="does not match"):
         p_ell.ell_relax_round(m[:, :8], idx, wgt)
+
+
+# ---------------------------------------------------------------------------
+# the streamed closure (source blocks through K3's rounds)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,seed,block", [(32, 3, 8), (48, 4, 16),
+                                          (40, 5, 40), (27, 6, 1024)])
+def test_streamed_ell_closure_equals_full_and_reference(n, seed, block):
+    """Streamed by source blocks, the closure equals the port's full
+    ``ell_bf_apsp`` and the reference's ``ell_bf_apsp_streamed`` bit for
+    bit on quantized (asymmetric) weights, and the most rounds a block
+    takes equals the full Jacobi closure's round count."""
+    w, idx, wgt = _ell_case(n, seed)
+    full, rounds = p_ell.ell_bf_apsp(idx, wgt)
+    got, got_rounds = p_ell.ell_bf_apsp_streamed(
+        idx[0].numpy(), wgt[0].numpy(), block=block, device="cpu")
+    assert got.dtype == np.float32 and got.shape == (n, n)
+    assert np.array_equal(got, full[0].numpy())
+    assert got_rounds == rounds
+    ref, _ = r_ell.ell_bf_apsp_streamed(idx[0].numpy(), wgt[0].numpy(),
+                                        block=min(block, n))
+    assert np.array_equal(got, np.asarray(ref))
+    # each block's one-hop carry is the full one's columns
+    b = min(block, n)
+    m0 = p_ell._full_init(idx, wgt)
+    assert torch.equal(p_ell._block_init(idx, wgt, 0, b), m0[:, :, :b])
+    assert torch.equal(p_ell._block_init(idx, wgt, n - b, b),
+                       m0[:, :, n - b:])
+
+
+def test_streamed_ell_closure_on_a_probe_graph_and_its_checks():
+    from repro_torch.core import graphs as p_graphs
+    g = p_graphs.random_regular_ell(256, 8, seed=0)
+    out = np.full((256, 256), -1.0, np.float32)
+    got, rounds = p_ell.ell_bf_apsp_streamed(torch.from_numpy(g.idx),
+                                             torch.from_numpy(g.wgt),
+                                             block=64, out=out, device="cpu")
+    assert got is out
+    full, full_rounds = p_ell.ell_bf_apsp(torch.from_numpy(g.idx)[None],
+                                          torch.from_numpy(g.wgt)[None])
+    assert np.array_equal(got, full[0].numpy()) and rounds == full_rounds
+    assert np.all(np.diag(got) == 0) and got.max() < _INF / 2
+    _, capped = p_ell.ell_bf_apsp_streamed(g.idx, g.wgt, block=64,
+                                           max_rounds=2, device="cpu")
+    assert capped == 2
+    with pytest.raises(ValueError, match="multiple of block"):
+        p_ell.ell_bf_apsp_streamed(g.idx, g.wgt, block=100, device="cpu")
+    with pytest.raises(ValueError, match="float32"):
+        p_ell.ell_bf_apsp_streamed(g.idx, g.wgt, block=64, device="cpu",
+                                   out=np.zeros((256, 256)))
+    with pytest.raises(ValueError, match=r"\[N, d_max\]"):
+        p_ell.ell_bf_apsp_streamed(g.idx[None], g.wgt[None], device="cpu")
