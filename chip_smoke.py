@@ -94,12 +94,34 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ``VL2Space(VL2Spec(6, 6, 20))`` and the two-class pool (10 x 18 + 20
    x 6 ports, 90 servers, ``robust=True``): best lb >= the recipe's, 1 +
    rounds search executes on one compile key; (b)
-   ``launch.figures.fig11`` at d_a = d_i = 10, 5 runs, HiGHS as the
-   criterion (its LPs in worker processes), then the designer's search
+   ``launch.figures.fig11`` at d_a = d_i = 6 (``FIG11_D``), 5 runs, HiGHS
+   as the criterion (its LPs in worker processes), then the designer's search
    at the recipe's ToR count again: its pick's certified lb >= the
    recipe's, and designed ToRs >= rewired ToRs exactly when the pick
    holds the figure's 5 held-out permutations under HiGHS;
-14. summary — one JSON line with every kernel, then the device line last.
+14. routing-restricted throughput — (a) ``benchmarks/routing_bench.py``'s
+   families (RRG(24, 4), two-cluster [8]x10 + [5]x10, VL2(6, 6, 10) with
+   8 ToRs; 3 permutation runs each, 400 steps) through the certified,
+   ``"ecmp"`` and ``"ksp"`` (k = 8) engines, one execute each on equal
+   compile keys (K1): ecmp <= ksp <= certified ub on every lane, HiGHS
+   between ksp and ub on each family's first run, one KSP lane under its
+   own path LP (or the ECMP floor), the gaps printed; (b) ECMP on 8 of
+   phase 3's instances at tol 1e-4 (K3, every launch on route "slab"):
+   0 < lb <= ub <= Theorem 1, the hop at which the fixed point repeats,
+   wall, instances/s, peak device memory; (c) KSP on 4 RRG(128, 8), 4
+   servers a switch: the path tensor's host seconds and bytes, the MW
+   loop's ms a step, the loads of fixed logits bit-equal to the CPU's;
+15. the lifecycle layer — (a) ``degradation_surface`` at
+   ``benchmarks/lifecycle_bench.py``'s paper scale (RRG(40, 6) and the
+   two-cluster 20 + 20 at r = 6, 3 servers a switch; rewired VL2(6, 4,
+   4) with 8 ToRs; 5 fractions x 30 trials x 3 failure kinds; certified
+   engine, 300 steps, tol 1e-3: K1): 3 executes, 2 refills, <= 4 compile
+   keys, lb <= ub on every trial, lb <= HiGHS θ <= ub on the first trial
+   of each family x kind at fraction 0.2 (LPs in phase 10's workers);
+   (b) ``plan_expansion`` at the benchmark's block (rewired VL2(4, 2, 4)
+   with 4 ToRs, 3 steps of two 4-port switches, budget 3, 2 rounds of 6):
+   a monotone certified lb, recabling within the budget at every step;
+16. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -108,7 +130,8 @@ Floyd-Warshall.
 Launch counts are reset just before each path's run (phase 3's, each of
 phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
 solves, phase 10's figure, phase 11's two streamed closures, each search
-of phases 12-13 and phase 13's figure) and read just after it; a kernel
+of phases 12-13, phase 13's figure, each engine's pile of phase 14 and
+each call of phase 15) and read just after it; a kernel
 of a path that was not launched fails the run.  The summary reports every
 path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
@@ -695,6 +718,10 @@ HOSE_TOL = 1e-4
 # benchmarks/design_bench.py's paper budget and ranking engine
 DESIGN_BUDGET = dict(rounds=3, fleet=8, elite=3, runs=2)
 DESIGN_ITERS = 250
+# Fig. 11's designed column at d_a = d_i = 6, a size of the paper's small
+# scale: at d = 10 (its paper scale) the column took 196-221 s and at d = 8
+# 118 s on an H100, time that phases 14-15 need
+FIG11_D = 6
 # benchmarks/fig11.py's row keys
 FIG11_KEYS = ["figure", "d_a", "d_i", "traffic", "vl2_tors", "rewired_tors",
               "gain_pct", "designed_tors", "designed_gain_pct",
@@ -990,12 +1017,13 @@ def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
     with concurrent.futures.ProcessPoolExecutor(
             os.cpu_count() or 4, mp_context=ctx) as pool:
         highs = PooledLP(pool, lp, engine_mod.ThroughputResult)
-        name = "phase 13b fig11 d_a=d_i=10, 5 runs, designed column"
+        name = (f"phase 13b fig11 d_a=d_i={FIG11_D}, 5 runs, designed "
+                "column")
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
-        rows = figures.fig11(sizes=[(10, 10)], runs=5, engine=highs,
-                             device="cuda")
+        rows = figures.fig11(sizes=[(FIG11_D, FIG11_D)], runs=5,
+                             engine=highs, device="cuda")
         wall = time.perf_counter() - t0
         run = record_path(name, runs, ["minplus_acc"])
         perm, stride = rows
@@ -1008,7 +1036,7 @@ def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
         # on its own traffic samples, and the designed count reaches the
         # recipe's exactly when that pick also holds the figure's held-out
         # permutations (the search scores on 3 samples of its own)
-        spec = vl2.VL2Spec(d_a=10, d_i=10, servers_per_tor=20)
+        spec = vl2.VL2Spec(d_a=FIG11_D, d_i=FIG11_D, servers_per_tor=20)
         n_tor = perm["rewired_tors"]
         t1 = time.perf_counter()
         probe = design.optimize(
@@ -1041,6 +1069,323 @@ def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
         raise SystemExit(f"chip_smoke: {name}: the designed column is not "
                          "what its searches give: "
                          f"{out['fig11']['probe_at_rewired']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# routing-restricted throughput and the lifecycle layer (phases 14-15)
+# ---------------------------------------------------------------------------
+
+# benchmarks/routing_bench.py's paper budget: runs a family, steps, paths
+ROUTING_RUNS, ROUTING_ITERS, ROUTING_K = 3, 400, 8
+# benchmarks/lifecycle_bench.py's paper scale
+LIFE_FRACTIONS = (0.05, 0.1, 0.2, 0.3, 0.45)
+LIFE_TRIALS = 30
+LIFE_ITERS, LIFE_TOL = 300, 1e-3
+GROWTH = dict(growth=[[4, 4]] * 3, max_recabled_links=3, rounds=2, fleet=6,
+              elite=2, runs=2, seed=0)
+
+
+def phase_routing(graphs, traffic, vl2, lp, bounds, get_engine, topos512,
+                  dems512, runs) -> dict:
+    """Phase 14: (a) ``benchmarks/routing_bench.py``'s families (RRG(24,
+    4), two-cluster [8]x10 + [5]x10, VL2(6, 6, 10) with 8 ToRs), 3
+    permutation runs each, 400 steps, through the certified, ECMP and
+    KSP(8) engines, one execute each on equal compile keys (K1): the
+    lattice ecmp <= ksp <= certified ub on every lane, HiGHS between ksp
+    and ub on each family's first run, one KSP lane under its own path
+    LP; (b) ECMP on 8 of phase 3's RRG(512, 16) at tol 1e-4 (K3, every
+    launch ``slab``): 0 < lb <= ub <= Theorem 1, the fixed point's hops,
+    wall, instances/s and peak device memory; (c) KSP(8) on 4 RRG(128, 8),
+    4 servers a switch: the path tensor's host seconds and bytes, the MW
+    loop's ms a step, and the loads of fixed logits bit-equal to the
+    CPU's."""
+    from repro_torch.core import routing
+    from repro_torch.kernels import paths as kpaths
+    out = {}
+    fams = {
+        "rrg": graphs.random_regular_graph(24, 4, seed=0, servers=4),
+        "two_cluster": graphs.biased_two_cluster_graph(
+            [8] * 10, [5] * 10, cross_bias=0.5, seed=1, servers=3),
+        "vl2": vl2.vl2_topology(
+            vl2.VL2Spec(d_a=6, d_i=6, servers_per_tor=10), n_tor=8)}
+    topos, dems = [], []
+    for fi, topo in enumerate(fams.values()):
+        for r in range(ROUTING_RUNS):
+            topos.append(topo)
+            dems.append(traffic.make("permutation", topo.servers,
+                                     seed=100 * fi + r))
+    engines = {"certified": get_engine("certified", iters=ROUTING_ITERS),
+               "ecmp": get_engine("ecmp", iters=ROUTING_ITERS),
+               "ksp": get_engine("ksp", iters=ROUTING_ITERS, k=ROUTING_K)}
+    res, walls = {}, {}
+    for key, eng in engines.items():
+        t0 = time.perf_counter()
+        run_path(f"phase 14a {key} routing families x{len(topos)}", eng,
+                 topos, dems, runs, ["minplus_acc"])
+        walls[key] = time.perf_counter() - t0
+        res[key] = runs[-1]["results"]
+    keys = {k: e.last_plan.compile_keys for k, e in engines.items()}
+    if len(set(keys.values())) != 1 or \
+            any(e.last_plan.chunks != 1 for e in engines.values()):
+        raise SystemExit(f"chip_smoke: phase 14a plans differ: {keys}")
+    ecmp = np.array([r.throughput for r in res["ecmp"]])
+    ksp = np.array([r.throughput for r in res["ksp"]])
+    lb = np.array([r.meta["lb"] for r in res["certified"]])
+    ub = np.array([r.meta["ub"] for r in res["certified"]])
+    if not np.all((0 < ecmp) & (ecmp <= ksp) & (ksp <= ub * (1 + 1e-6))
+                  & (lb <= ub)):
+        raise SystemExit(f"chip_smoke: phase 14a lattice broken: ecmp "
+                         f"{ecmp}, ksp {ksp}, ub {ub}")
+    first = [fi * ROUTING_RUNS for fi in range(len(fams))]
+    theta = np.array([lp.max_concurrent_flow(topos[i].cap, dems[i],
+                                             want_flows=False).throughput
+                      for i in first])
+    if not np.all((ksp[first] <= theta * (1 + 1e-6))
+                  & (theta <= ub[first] * (1 + 1e-6))):
+        raise SystemExit(f"chip_smoke: phase 14a HiGHS {theta} outside "
+                         f"[ksp {ksp[first]}, ub {ub[first]}]")
+    max_hops = routing._resolve_max_hops(
+        res["ksp"][0].meta["padded_n"], None)
+    path_lp = routing.path_lp_throughput(
+        topos[0].cap, dems[0],
+        kpaths.k_shortest_paths(topos[0].cap, ROUTING_K, max_hops))
+    # MW never beats its own path LP; the ECMP floor may
+    if not ksp[0] <= max(path_lp, ecmp[0]) * (1 + 2e-3):
+        raise SystemExit(f"chip_smoke: phase 14a ksp {ksp[0]} above its "
+                         f"path LP {path_lp}")
+    gaps = {}
+    for fi, name in enumerate(fams):
+        lanes = slice(fi * ROUTING_RUNS, (fi + 1) * ROUTING_RUNS)
+        gaps[name] = {
+            "ecmp_gap_pct": max(r.meta["ideal_gap_pct"]
+                                for r in res["ecmp"][lanes]),
+            "ksp_gap_pct": max(r.meta["ideal_gap_pct"]
+                               for r in res["ksp"][lanes]),
+            "ecmp_lb": ecmp[lanes].tolist(), "ksp_lb": ksp[lanes].tolist(),
+            "certified_ub": ub[lanes].tolist(),
+            "theta_run0": float(theta[fi])}
+    out["a"] = {"instances": len(topos), "walls_s": walls,
+                "compile_keys": keys["ksp"], "families": gaps,
+                "path_lp_lane0": path_lp, "ksp_lane0": float(ksp[0]),
+                "ecmp_hops": [int(r.meta["ecmp_hops"])
+                              for r in res["ecmp"]]}
+    log(json.dumps({"phase": "14a", **out["a"]}, default=str))
+
+    # (b) ECMP at the paper's scale: K3 slab for the unit-hop APSP
+    topos, dems = topos512[:8], dems512[:8]
+    eng = get_engine("ecmp", tol=1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_path("phase 14b ecmp auto->ell-bf RRG(512,16) x8", eng, topos, dems,
+             runs, ["ell_relax_round"])
+    wall = time.perf_counter() - t0
+    all_on_route(runs[-1], "ell_relax_round", "slab")
+    res_b = runs[-1]["results"]
+    lbs = np.array([r.throughput for r in res_b])
+    ubs = np.array([r.meta["ub"] for r in res_b])
+    thm1 = np.array([bounds.throughput_upper_bound(512, 16, float(d.sum()))
+                     for d in dems])
+    if not np.all((0 < lbs) & (lbs <= ubs) & (ubs <= thm1 * (1 + 1e-6))):
+        raise SystemExit(f"chip_smoke: phase 14b not 0 < ecmp lb <= ub <= "
+                         f"Theorem 1: {lbs} {ubs} {thm1}")
+    out["b"] = {"instances": len(topos), "wall_s": wall,
+                "instances_per_s": len(topos) / wall,
+                "ecmp_hops": sorted({int(r.meta["ecmp_hops"])
+                                     for r in res_b}),
+                "lb": lbs.tolist(), "ub": ubs.tolist(),
+                "ideal_gap_pct": [r.meta["ideal_gap_pct"] for r in res_b],
+                "theorem1": thm1.tolist(),
+                "descent_iterations_max": int(max(r.meta["iterations"]
+                                                  for r in res_b)),
+                "peak_device_bytes": torch.cuda.max_memory_allocated()}
+    log(json.dumps({"phase": "14b", **out["b"]}))
+
+    # (c) KSP at N = 128: the host's path tensor, the MW loop, the loads
+    topos, dems = instances(graphs, traffic, 128, 8, 4, range(4))
+    caps = np.stack([t.cap for t in topos]).astype(np.float32)
+    dem_np = np.stack(dems).astype(np.float32)
+    nv = np.full(4, 128, np.int32)
+    t0 = time.perf_counter()
+    paths = routing._paths_tensor(caps, nv, ROUTING_K,
+                                  routing._resolve_max_hops(128, None))
+    paths_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = routing._path_tables(paths, 128, "cuda")
+    tables_s = time.perf_counter() - t0
+    run_path("phase 14c ksp RRG(128,8) x4", get_engine(
+        "ksp", iters=ROUTING_ITERS, k=ROUTING_K), topos, dems, runs,
+        ["minplus_acc"])
+    res_c = runs[-1]["results"]
+    demv = torch.as_tensor(dem_np.reshape(4, -1), device="cuda")
+    emask = torch.as_tensor(caps.reshape(4, -1) > 0, device="cuda")
+    scap = torch.where(emask, torch.as_tensor(caps.reshape(4, -1),
+                                              device="cuda"), 1.0)
+    steps = 100
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    routing._mw_descend(tables, demv, emask, scap, iters=steps, lr=0.08,
+                        tol=0.0, check_every=25)
+    torch.cuda.synchronize()
+    mw_ms = (time.perf_counter() - t0) * 1e3 / steps
+    z = torch.from_numpy(np.random.default_rng(0).normal(
+        0, 2, paths.shape[:3]).astype(np.float32))
+    loads = {}
+    for dev in ("cuda", "cpu"):
+        tb = tables if dev == "cuda" else routing._path_tables(paths, 128,
+                                                                "cpu")
+        wgt, _ = routing._path_weights(z.to(dev), tb, demv.to(dev))
+        loads[dev] = routing._edge_loads(wgt, tb).cpu()
+    if not torch.equal(loads["cuda"], loads["cpu"]):
+        diff = float((loads["cuda"] - loads["cpu"]).abs().max())
+        raise SystemExit("chip_smoke: phase 14c KSP loads differ from the "
+                         f"CPU's: max abs {diff}")
+    lbs = np.array([r.throughput for r in res_c])
+    ubs = np.array([r.meta["ub"] for r in res_c])
+    if not np.all((0 < lbs) & (lbs <= ubs)):
+        raise SystemExit(f"chip_smoke: phase 14c not 0 < lb <= ub: {lbs} "
+                         f"{ubs}")
+    out["c"] = {"instances": 4, "paths_host_s": paths_s,
+                "tables_s": tables_s,
+                "paths_bytes": int(paths.nbytes),
+                "tables_bytes": int(sum(
+                    t.numel() * t.element_size() for t in (
+                        tables.valid, tables.hop_edge, tables.edge_paths,
+                        tables.edge_pos))),
+                "edge_list_width": int(tables.edge_paths.shape[2]),
+                "mw_ms_per_step": mw_ms, "wall_s": runs[-1]["wall_s"],
+                "lb": lbs.tolist(), "ub": ubs.tolist(),
+                "ideal_gap_pct": [r.meta["ideal_gap_pct"] for r in res_c],
+                "loads_equal_cpu": True}
+    log(json.dumps({"phase": "14c", **out["c"]}))
+    return out
+
+
+def phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs, pool) -> dict:
+    """Phase 15: (a) ``degradation_surface`` at
+    ``benchmarks/lifecycle_bench.py``'s paper scale (RRG(40, 6) and the
+    two-cluster 20 + 20 at r = 6, 3 servers a switch; rewired VL2(6, 4, 4)
+    with 8 ToRs; 5 fractions x 30 trials x 3 kinds; certified engine, 300
+    steps, tol 1e-3: K1): 3 executes, 2 refills, <= 4 compile keys, lb <=
+    ub on every trial, lb <= HiGHS θ <= ub on each family x kind's first
+    trial at fraction 0.2 (LPs in ``pool``); (b) ``plan_expansion`` at
+    the benchmark's block (rewired VL2(4, 2, 4) with 4 ToRs, 3 steps of
+    two 4-port switches, budget 3): a monotone lb, recabling within the
+    budget at every step."""
+    from repro_torch import lifecycle
+    from repro_torch.core.plan import BatchPlan
+    from repro_torch.kernels import _build
+
+    class KeptPlan(BatchPlan):
+        def execute(self, *args, **kw):
+            solved = super().execute(*args, **kw)
+            self.kept.append((self.caps, self.dems, solved))
+            return solved
+
+    class Kept(CertifiedEngine):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.kept = []     # (caps, dems, results) of every execute
+
+        def plan(self, topos, dems):
+            plan = KeptPlan.__new__(KeptPlan)
+            plan.__dict__.update(super().plan(topos, dems).__dict__)
+            plan.kept = self.kept
+            return plan
+
+    out = {}
+    n, r, sp = 40, 6, 3
+    fams = {"rrg": graphs.random_regular_graph(n, r, seed=0, servers=sp),
+            "two_cluster": graphs.biased_two_cluster_graph(
+                [r] * (n // 2), [r] * (n // 2), cross_bias=0.5, seed=0,
+                servers=sp),
+            "vl2": vl2.rewired_vl2_topology(
+                vl2.VL2Spec(d_a=6, d_i=4, servers_per_tor=4), 8, seed=0)}
+    eng = Kept(iters=LIFE_ITERS, tol=LIFE_TOL)
+    name = (f"phase 15a degradation {len(fams)} families x 3 kinds x "
+            f"{len(LIFE_FRACTIONS)} fractions x {LIFE_TRIALS} trials")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    surf = lifecycle.degradation_surface(
+        fams, fractions=LIFE_FRACTIONS, trials=LIFE_TRIALS, engine=eng,
+        seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    record_path(name, runs, ["minplus_acc"])
+    s = surf.stats
+    per_kind = len(fams) * len(LIFE_FRACTIONS) * LIFE_TRIALS
+    if s["executes"] != 3 or s["refills"] != 2 or \
+            len(s["compile_keys"]) > 4 or len(eng.kept) != 3:
+        raise SystemExit(f"chip_smoke: {name}: {s['executes']} executes, "
+                         f"{s['refills']} refills, compile keys "
+                         f"{s['compile_keys']}")
+    lbs = np.array([x.value for _, _, solved in eng.kept for x in solved])
+    ubs = np.array([x.meta["ub"] for _, _, solved in eng.kept
+                    for x in solved])
+    if len(lbs) != 3 * per_kind or not np.all(
+            np.isfinite(ubs) & (lbs >= 0) & (lbs <= ubs)):
+        raise SystemExit(f"chip_smoke: {name}: lb <= ub fails on a trial")
+    sample = [fi * len(LIFE_FRACTIONS) * LIFE_TRIALS
+              + LIFE_FRACTIONS.index(0.2) * LIFE_TRIALS
+              for fi in range(len(fams))]
+    held = [(k, i, caps[i], dems[i], solved[i])
+            for k, (caps, dems, solved) in enumerate(eng.kept)
+            for i in sample]
+    lps = [pool.submit(lp.max_concurrent_flow, c, d, False)
+           for _, _, c, d, _ in held]
+    theta = np.array([f.result().throughput for f in lps])
+    hlb = np.array([h[4].value for h in held])
+    hub = np.array([h[4].meta["ub"] for h in held])
+    if not np.all((hlb <= theta * (1 + 1e-6))
+                  & (theta <= hub * (1 + 1e-6))):
+        raise SystemExit(f"chip_smoke: {name}: HiGHS {theta} outside "
+                         f"[{hlb}, {hub}]")
+    out["a"] = {"instances": 3 * per_kind, "wall_s": wall,
+                "instances_per_s": 3 * per_kind / wall,
+                "executes": s["executes"], "refills": s["refills"],
+                "compile_keys": s["compile_keys"],
+                "iterations_max": int(max(x.iterations for _, _, sv in
+                                          eng.kept for x in sv)),
+                "held_theta": theta.tolist(), "held_lb": hlb.tolist(),
+                "held_ub": hub.tolist(),
+                "points": [dataclasses.asdict(p) for p in surf.points
+                           if p.fraction in (0.05, 0.45)]}
+    log(json.dumps({"phase": "15a", **out["a"]}))
+
+    start = vl2.rewired_vl2_topology(
+        vl2.VL2Spec(d_a=4, d_i=2, servers_per_tor=4), n_tor=4, seed=0)
+
+    def forbid(t):
+        tor = t.labels == 0
+        return tor[:, None] & tor[None, :]
+
+    name = "phase 15b expansion VL2(4,2,4) 3 steps, budget 3"
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    grown = lifecycle.plan_expansion(
+        start, engine=CertifiedEngine(iters=LIFE_ITERS, tol=LIFE_TOL),
+        new_labels=[2], forbidden_fn=forbid, link_unit=vl2.FABRIC, **GROWTH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    record_path(name, runs, ["minplus_acc"])
+    lbs = [st.lb for st in grown.steps]
+    budget = GROWTH["max_recabled_links"]
+    if len(lbs) != 4 or not all(b >= a for a, b in zip(lbs, lbs[1:])) or \
+            not all(st.recabled <= budget for st in grown.steps) or \
+            not all(0 < st.lb <= st.ub for st in grown.steps):
+        raise SystemExit(f"chip_smoke: {name}: lbs {lbs}, recabled "
+                         f"{[st.recabled for st in grown.steps]}")
+    out["b"] = {"wall_s": wall, "lb": lbs,
+                "ub": [st.ub for st in grown.steps],
+                "recabled": [st.recabled for st in grown.steps],
+                "chose": [st.chose for st in grown.steps],
+                "nodes": [st.topo.n for st in grown.steps],
+                "growth_gain_pct": 100.0 * (lbs[-1] / lbs[0] - 1),
+                "executes": grown.stats["executes"],
+                "compile_keys": grown.stats["compile_keys"]}
+    log(json.dumps({"phase": "15b", **out["b"]}))
     return out
 
 
@@ -1659,13 +2004,35 @@ def main() -> None:
             f"instances/s (phase wall {time.perf_counter() - t0:.1f} s)")
         phases_11_to_13(card, graphs, kell, lp, traffic, het, figures,
                         topos[0], timed, runs)
+
+        # phase 14: routing-restricted throughput (K1; K3 slab at N=512)
+        from repro_torch.core import vl2
+        t0 = time.perf_counter()
+        routed = phase_routing(graphs, traffic, vl2, lp, bounds, get_engine,
+                               topos, dems, runs)
+        log(f"{card}: phase 14 routing families "
+            f"{sum(routed['a']['walls_s'].values()):.1f} s, ecmp "
+            f"RRG(512,16) {routed['b']['instances_per_s']:.2f} instances/s "
+            f"({routed['b']['ecmp_hops']} hops), ksp RRG(128,8) "
+            f"{routed['c']['mw_ms_per_step']:.2f} ms a MW step (phase wall "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+        # phase 15: the lifecycle layer (K1), its HiGHS sample in lp_pool
+        t0 = time.perf_counter()
+        life = phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs,
+                               lp_pool)
+        log(f"{card}: phase 15 degradation "
+            f"{life['a']['instances_per_s']:.2f} instances/s "
+            f"({life['a']['wall_s']:.1f} s), expansion "
+            f"{life['b']['wall_s']:.1f} s (phase wall "
+            f"{time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         check_figure(fig5, held)
         log(f"phase 10 HiGHS waited {time.perf_counter() - t0:.1f} s")
     finally:
         lp_pool.shutdown(cancel_futures=True)
 
-    # phase 14: summary
+    # phase 16: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "

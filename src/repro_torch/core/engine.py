@@ -9,11 +9,15 @@
   ``meta["ub"]``; same planner, same knobs.
 * ``CertifiedEngine`` — the same program reported as a bracket:
   ``meta["lb"]`` / ``meta["ub"]`` / ``meta["gap"]``.
+* ``EcmpEngine`` / ``KspEngine`` — routing-restricted LOWER bounds
+  (``repro_torch.core.routing``): ECMP's equal split, and multiplicative
+  weights over each pair's k shortest paths; the ideal upper bound rides
+  along in ``meta["ub"]`` and ``meta["ideal_gap_pct"]``.
 * ``AutoEngine`` — exact LP for small instances, the dual beyond.
 * ``AdversarialEngine`` — the worst-case TM search
   (``repro_torch.core.adversarial``) reported as a bracket.
 * ``get_engine("exact" | "dual" | "dual-pallas" | "primal" | "certified" |
-  "auto" | "adversarial")`` and
+  "ecmp" | "ksp" | "auto" | "adversarial")`` and
   ``as_engine``.  The names are the reference's: ``"dual-pallas"`` is the
   dual descent whose APSP is repeated squaring on the hand-written
   tropical kernel (K1).
@@ -35,14 +39,15 @@ import torch
 
 from repro_torch.core import apsp as apsp_mod
 from repro_torch.core import adversarial as adversarial_mod
-from repro_torch.core import lp, mcf, primal
+from repro_torch.core import lp, mcf, primal, routing
 from repro_torch.core import traffic as traffic_mod
 from repro_torch.core.graphs import Topology, as_cap
 from repro_torch.core.plan import BatchPlan, InstanceSolve, bucket_size
 
 __all__ = ["ThroughputResult", "ThroughputEngine", "ExactLPEngine",
-           "DualEngine", "PrimalEngine", "CertifiedEngine", "AutoEngine",
-           "AdversarialEngine", "ENGINES", "get_engine", "as_engine", "bucket_size", "SweepPoint",
+           "DualEngine", "PrimalEngine", "CertifiedEngine", "EcmpEngine",
+           "KspEngine", "AutoEngine", "AdversarialEngine", "ENGINES",
+           "get_engine", "as_engine", "bucket_size", "SweepPoint",
            "Sweep", "run_sweep", "run_sweeps"]
 
 
@@ -308,6 +313,80 @@ class CertifiedEngine(PrimalEngine):
         return _bracket(s.value, s.meta["ub"], s.meta, self.name)
 
 
+def _ideal_gap_pct(lb: float, ub: float) -> float:
+    """Certified price of a routing restriction, in percent of the ideal
+    upper bound (0.0 on degenerate ub <= 0 instances)."""
+    return 100.0 * (ub - lb) / ub if ub > 0 else 0.0
+
+
+class EcmpEngine(_PlannedEngine):
+    """Routing-restricted LOWER bound under ECMP (``routing``):
+    ``bound="lower"`` — an explicit equal-cost equal-split routing carries
+    every demand at rate ``throughput``.  The ideal dual descent's upper
+    bound rides along in ``meta["ub"]`` and ``meta["ideal_gap_pct"]`` is
+    the certified price of the restriction.  Knobs: the planner's plus
+    ``hops`` (the cap on ECMP propagation; default N covers the
+    diameter)."""
+
+    name = "ecmp"
+    solver = "ecmp"
+    _single = staticmethod(routing.solve_ecmp)
+
+    def __init__(self, hops: int | None = None, **kw):
+        super().__init__(**kw)
+        self.hops = hops
+
+    def _solver_kw(self) -> dict:
+        kw = super()._solver_kw()
+        if self.hops is not None:
+            kw["hops"] = self.hops
+        return kw
+
+    def solve(self, topo, dem) -> ThroughputResult:
+        topo, dem, frac, short = self._solve_preprocessed(topo, dem)
+        if short is not None:
+            return short
+        res = self._single(topo, dem, device=self.device,
+                           **self._solver_kw())
+        s = InstanceSolve(value=res.throughput_lb, iterations=res.iterations,
+                          meta={"iterations": res.iterations,
+                                "final_util": res.final_util,
+                                "ub": res.throughput_ub})
+        return self._with_dropped(self._result(s), frac)
+
+    def _result(self, s) -> ThroughputResult:
+        meta = {**s.meta,
+                "ideal_gap_pct": _ideal_gap_pct(s.value, s.meta["ub"])}
+        return ThroughputResult(throughput=s.value, is_upper_bound=False,
+                                engine=self.name, bound="lower", meta=meta)
+
+
+class KspEngine(EcmpEngine):
+    """Routing-restricted LOWER bound under k-shortest-path multipath
+    routing (``routing``): multiplicative weights over each pair's ``k``
+    shortest simple paths, floored by ECMP, so ``ecmp <= ksp(k) <= exact``
+    holds on every instance.  Knobs: ``k`` (paths per pair, default 8) and
+    ``max_hops`` (per-path hop budget; default min(N - 1, 12), from the
+    padded width); ``meta`` as ``EcmpEngine``'s."""
+
+    name = "ksp"
+    solver = "ksp"
+    _single = staticmethod(routing.solve_ksp)
+
+    def __init__(self, k: int = routing.DEFAULT_K,
+                 max_hops: int | None = None, **kw):
+        super().__init__(**kw)
+        self.k = k
+        self.max_hops = max_hops
+
+    def _solver_kw(self) -> dict:
+        kw = super()._solver_kw()
+        kw["k"] = self.k
+        if self.max_hops is not None:
+            kw["max_hops"] = self.max_hops
+        return kw
+
+
 class AutoEngine:
     """Exact LP up to ``exact_max_nodes``, the dual bound beyond (check the
     per-result ``bound``); ``dual_kw`` goes to the inner ``DualEngine``."""
@@ -397,6 +476,8 @@ ENGINES: dict[str, Callable[..., ThroughputEngine]] = {
     "dual-pallas": lambda **kw: DualEngine(use_pallas=True, **kw),
     "primal": PrimalEngine,
     "certified": CertifiedEngine,
+    "ecmp": EcmpEngine,
+    "ksp": KspEngine,
     "auto": AutoEngine,
     "adversarial": AdversarialEngine,
 }

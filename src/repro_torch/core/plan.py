@@ -3,7 +3,9 @@
 (``mcf``), ``execute(solver="dual-demgrad")`` the same descent with each
 lane's demand gradient, ``execute(solver="primal")`` the Frank–Wolfe
 primal (``primal``, a certified lower bound with the dual's upper bound)
-over the same buckets and chunks.
+over the same buckets and chunks, and ``execute(solver="ecmp" | "ksp")``
+the routing-restricted lower bounds (``routing``) with the ideal upper
+bound beside them.
 
 1. **Buckets** — instances are grouped by padded node count
    (``bucket_size``) and padded to their bucket's largest member; padded
@@ -27,7 +29,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import mcf, primal
+from repro_torch.core import mcf, primal, routing
 from repro_torch.core.graphs import Topology, as_cap, degree_stats
 
 __all__ = ["bucket_size", "device_count", "Chunk", "PlanStats",
@@ -127,11 +129,22 @@ def _dispatch_primal(capp, demp, n_valid, solver_kw):
             "final_util": r.final_util, "iterations": r.iterations}
 
 
+def _dispatch_routing(solve):
+    def dispatch(capp, demp, n_valid, solver_kw):
+        r = solve(capp, demp, n_valid=n_valid, block=False, **solver_kw)
+        return {"value": r.throughput_lb, "ub": r.throughput_ub,
+                "final_util": r.final_util, "iterations": r.iterations,
+                "ecmp_hops": r.ecmp_hops}
+    return dispatch
+
+
 # chunk dispatchers by solver name: (capp, demp, n_valid, solver_kw) ->
 # dict of per-lane device tensors; "value" is the headline bound, every
 # other key is copied into the per-instance meta
 SOLVERS = {"dual": _dispatch_dual, "primal": _dispatch_primal,
-           "dual-demgrad": _dispatch_dual_demgrad}
+           "dual-demgrad": _dispatch_dual_demgrad,
+           "ecmp": _dispatch_routing(routing.solve_ecmp_batch),
+           "ksp": _dispatch_routing(routing.solve_ksp_batch)}
 
 
 class BatchPlan:
@@ -239,9 +252,10 @@ class BatchPlan:
         """Run every chunk on ``device``, copy the results to the host
         once, and scatter them back into input order.  ``solver`` names a
         ``SOLVERS`` entry ("dual", "dual-demgrad": ``meta["dem_grad"]`` is
-        each lane's demand gradient, or "primal").  ``solver_kw`` goes
-        to the solver (iters/lr/tol/check_every/use_pallas/backend/d_max/
-        max_rounds); where the backend can land on ``"ell-bf"`` and no
+        each lane's demand gradient, "primal", "ecmp" or "ksp").
+        ``solver_kw`` goes to the solver (iters/lr/tol/check_every/
+        use_pallas/backend/d_max/max_rounds, and hops/k/max_hops for the
+        routing solvers); where the backend can land on ``"ell-bf"`` and no
         table stats were given, each chunk gets its own density hints."""
         try:
             dispatch = SOLVERS[solver]

@@ -417,6 +417,88 @@ def test_cuda_certified_brackets_agree_across_backends(cuda):
             assert th <= a.meta["ub"] * (1 + 1e-6)
 
 
+def _routing_pile(ns=(24, 32, 40), deg=4):
+    from repro_torch.core import graphs, traffic
+    nmax = max(ns)
+    caps = np.zeros((len(ns), nmax, nmax), np.float32)
+    dems = np.zeros_like(caps)
+    for s, n in enumerate(ns):
+        t = graphs.random_regular_graph(n, deg, seed=s, servers=3)
+        caps[s, :n, :n] = t.cap
+        dems[s, :n, :n] = traffic.make("permutation", t.servers, seed=s + 1)
+    return caps, dems, np.array(ns, np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend,kernel", [("squaring", "minplus_acc"),
+                                            ("ell-bf", "ell_relax_round")])
+def test_cuda_ecmp_matches_cpu(cuda, backend, kernel):
+    """ECMP on the card: unit-hop distances from K1 or K3 are exact and
+    every sum of the split's propagation has a fixed order, so the lower
+    bound, the utilisation and the hop at which the fixed point repeats
+    are the CPU's bit for bit.  The free ub is the dual descent's, whose
+    card and CPU iterates part at 100 steps (1.8e-3 on one lane, H100;
+    ``test_cuda_dual_demgrad_matches_cpu`` says why), so it is held to
+    HiGHS: ecmp lb <= θ <= ub on both devices."""
+    from repro_torch.core import lp, routing
+    caps, dems, nv = _routing_pile()
+    kw = dict(n_valid=nv, iters=100, backend=backend)
+    _build.reset_launches()
+    card = routing.solve_ecmp_batch(caps, dems, **kw)
+    assert _build.LAUNCHES[kernel] > 0
+    cpu = routing.solve_ecmp_batch(caps, dems, device="cpu", **kw)
+    assert np.array_equal(card.throughput_lb, cpu.throughput_lb)
+    assert np.array_equal(card.final_util, cpu.final_util)
+    assert np.array_equal(card.ecmp_hops, cpu.ecmp_hops)
+    for i, n in enumerate(nv):
+        theta = lp.max_concurrent_flow(caps[i, :n, :n], dems[i, :n, :n],
+                                       want_flows=False).throughput
+        assert 0 < card.throughput_lb[i] <= theta * (1 + 1e-6)
+        assert theta <= min(card.throughput_ub[i],
+                            cpu.throughput_ub[i]) * (1 + 1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_ksp_loads_equal_cpu(cuda):
+    """The MW step's loads for fixed logits: gathers and sums in each
+    edge's fixed order, no atomics, so the card's are the CPU's bit for
+    bit, for the weights and through the softmax."""
+    from repro_torch.core import routing
+    caps, dems, nv = _routing_pile()
+    paths = routing._paths_tensor(caps, nv, 8, 12)
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy(rng.normal(0, 2, paths.shape[:3])
+                         .astype(np.float32))
+    flows = torch.from_numpy(rng.uniform(0, 1, paths.shape[:3])
+                             .astype(np.float32))
+    demv = torch.from_numpy(dems.reshape(len(nv), -1))
+    got = {}
+    for dev in ("cpu", cuda):
+        tables = routing._path_tables(paths, caps.shape[1], dev)
+        wgt, _ = routing._path_weights(z.to(dev), tables, demv.to(dev))
+        got[str(dev)] = (wgt.cpu(), routing._edge_loads(wgt, tables).cpu(),
+                         routing._edge_loads(flows.to(dev), tables).cpu())
+    for a, b in zip(got["cpu"], got[str(cuda)]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_ksp_keeps_the_certificates(cuda):
+    from repro_torch.core import lp, routing
+    caps, dems, nv = _routing_pile()
+    _build.reset_launches()
+    ksp = routing.solve_ksp_batch(caps, dems, n_valid=nv, iters=200, k=8)
+    assert _build.LAUNCHES["minplus_acc"] > 0
+    ecmp = routing.solve_ecmp_batch(caps, dems, n_valid=nv, iters=10)
+    for i, n in enumerate(nv):
+        theta = lp.max_concurrent_flow(caps[i, :n, :n], dems[i, :n, :n],
+                                       want_flows=False).throughput
+        assert 0 < ecmp.throughput_lb[i] <= ksp.throughput_lb[i]
+        assert ksp.throughput_lb[i] <= theta * (1 + 1e-6)
+        assert theta <= ksp.throughput_ub[i] * (1 + 1e-6)
+        assert ksp.iterations[i] == 200
+
+
 def _normal(seed, *shape):
     return torch.from_numpy(np.random.default_rng(seed).standard_normal(
         shape).astype(np.float32))

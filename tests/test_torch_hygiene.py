@@ -1,5 +1,6 @@
-"""Port hygiene: ``repro_torch`` (``design/`` and ``core/adversarial.py``
-included) and ``chip_smoke.py`` never import jax or the reference package,
+"""Port hygiene: ``repro_torch`` (``design/``, ``lifecycle/``,
+``core/adversarial.py`` and ``core/routing.py`` included) and
+``chip_smoke.py`` never import jax or the reference package,
 importing the port builds nothing, and entry points refuse to run quietly
 on the CPU when no card is present."""
 import ast
@@ -12,9 +13,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import design  # noqa: E402
+from repro_torch import design, lifecycle  # noqa: E402
 from repro_torch.core import (get_engine, graphs, heterogeneous, mcf,  # noqa: E402,E501
-                              traffic)
+                              routing, traffic)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ell as kell  # noqa: E402
 from repro_torch.launch import figures  # noqa: E402
@@ -52,7 +53,10 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.core.vl2, repro_torch.core.fabric, "
             "repro_torch.core.decompose, repro_torch.launch.figures, "
             "repro_torch.core.adversarial, repro_torch.design, "
-            "repro_torch.design.optimizer\n"
+            "repro_torch.design.optimizer, repro_torch.core.routing, "
+            "repro_torch.kernels.paths, repro_torch.lifecycle, "
+            "repro_torch.lifecycle.degradation, "
+            "repro_torch.lifecycle.expansion\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"
@@ -92,6 +96,20 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         design.optimize(design.TwoClassSpace(heterogeneous.TwoClassSpec(
             n_large=3, k_large=12, n_small=7, k_small=5, num_servers=25)),
             rounds=0, fleet=1)
+    for solve in (routing.solve_ecmp_batch, routing.solve_ksp_batch):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            solve([topo.cap], [dem])
+    for name in ("ecmp", "ksp"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_engine(name).solve(topo, dem)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_engine(name).solve_batch([topo], [dem])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lifecycle.degradation_surface({"rrg": topo}, fractions=(0.1,),
+                                      trials=1)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lifecycle.plan_expansion(topo, [[2]], rounds=0, fleet=1, elite=1,
+                                 runs=1)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         kell.ell_bf_apsp_streamed(np.zeros((4, 1), np.int32),
                                   np.zeros((4, 1), np.float32))
