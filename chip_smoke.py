@@ -35,7 +35,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
 6. LM kernels — K4 ``flash_attention`` on each of its routes (prefill
    B=8, L=1000, 24/8 heads, D=128, bf16: route "mma"; decode Lq=1,
    lk_valid=1001 over a cache of 1016, bf16: route "decode"; aligned
-   L=1024 bf16: "mma"; the float32 prefill: route "f32") and K5
+   L=1024 bf16: "mma"; the float32 prefill: route "f32"; recurrentgemma-2b's
+   shapes at D=256, 10/1 heads: L=3000 with window 2048 ("mma"), decode
+   over a 2048 ring ("decode"), float32 L=1000 and L=3000 with the window
+   ("f32"); musicgen-medium's 24/24 heads at D=64 (g=1), granite-moe-3b's
+   24/8 at D=64 and qwen2-vl-7b's 28/4 at D=128 (g=7), each a prefill
+   ("mma") and a decode step ("decode"); and, untimed, the float32 shapes
+   of the 4-layer checks of phases 7 and 16) and K5
    ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and without s0,
    and the model's [8, 1000, 64, 64] projections as [B, H, T, n] views)
    against their plain versions on the card, within stated tolerances;
@@ -121,7 +127,22 @@ Phases (any failure exits non-zero; no phase catches and continues):
    (b) ``plan_expansion`` at the benchmark's block (rewired VL2(4, 2, 4)
    with 4 ToRs, 3 steps of two 4-port switches, budget 3, 2 rounds of 6):
    a monotone certified lb, recabling within the budget at every step;
-16. summary — one JSON line with every kernel, then the device line last.
+16. the moe, vlm, audio and hybrid families served at full width and depth
+   through the port's entry points, 8 requests and 16 greedy tokens each:
+   (a) granite-moe-3b-a800m, 8 x 1000 tokens; (b) qwen2-vl-7b, 256 seeded
+   patch embeddings [8, 256, 1176] and 744 text tokens with M-RoPE
+   positions, through ``make_prefill_step``/``make_decode_step``; (c)
+   musicgen-medium, 8 x 1000; (d) recurrentgemma-2b, 8 x 3000 (past its
+   2048-key window).  Every picked token's logits against the plain path
+   and the float32 plain path as in phase 7 (the moe family's plain path
+   runs the same prefill and steps, since its routing groups depend on
+   the call's shape); every attention layer's K4 launch on route "mma" at
+   the prefill and "decode" at each step (32, 28, 48 and 8 attention
+   layers), no plain attention on the card; the moe family's routings
+   that differ from the plain path (printed only; read in an untimed
+   replay of the served prefill and steps); the 4-layer float32
+   check; a profiled prefill and decode step of the moe and the hybrid;
+17. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -137,7 +158,8 @@ path's own counts, never a sum over runs: ``launches`` of a kernel is from the f
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
 ``paths`` lists each run that launched it, with K1's launches in the
 blocked-fw run split by panel (row, column, outer) and K4's split into
-the full-sequence (prefill) and decode sites and by route.  K4's
+the full-sequence (prefill) and decode sites and by route (phase 16's
+four families among them).  K4's
 ``launches`` are from minitron-4b's full-depth generate, K5's from
 rwkv6-7b's; every K4 launch of the bf16 prefill must take route "mma" and
 every one of a decode step route "decode".
@@ -1442,20 +1464,35 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-def sdpa_call(q, k, v, lk_valid):
+def sdpa_call(q, k, v, lk_valid, window=0):
     """One ``scaled_dot_product_attention`` call on K4's inputs in torch's
-    [B, H, L, D] layout (transposed outside the timed call)."""
+    [B, H, L, D] layout (transposed outside the timed call); a local window
+    goes in as an explicit ``attn_mask``."""
     import torch.nn.functional as F
     qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
     lq, lk = q.shape[1], k.shape[1]
-    if lk_valid == lk and lq == lk:
+    if lk_valid == lk and lq == lk and not window:
         return lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)
     kpos = torch.arange(lk, device=q.device)
     qpos = torch.arange(lq, device=q.device) + (lk_valid - lq)
     mask = (kpos[None, :] < lk_valid) & (kpos[None, :] <= qpos[:, None])
+    if window:
+        mask &= kpos[None, :] > qpos[:, None] - window
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+
+def visible_pairs(lq: int, valid: int, window: int = 0) -> int:
+    """(query, key) pairs a causal call sees: query i at key position
+    i + valid - lq sees the keys up to its own, the last ``window`` of
+    them when ``window > 0``."""
+    off, pairs = valid - lq, 0
+    for i in range(lq):
+        hi = min(valid, i + off + 1)
+        lo = max(0, i + off - window + 1) if window else 0
+        pairs += max(0, hi - lo)
+    return pairs
 
 
 def earlier_k4(lib, q, k, v, lk_valid):
@@ -1466,7 +1503,7 @@ def earlier_k4(lib, q, k, v, lk_valid):
     b, lq, hq, d = q.shape
     out = torch.empty_like(q)
     args = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, b,
-            lq, lk_valid, hq, k.shape[2], d, 1, 1.0 / d ** 0.5,
+            lq, lk_valid, hq, k.shape[2], d, 1, 0, 1.0 / d ** 0.5,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *out.stride()[:3], _build.stream_ptr(q.device))
     return lambda: _build.check(lib.flash_attention(*args),
@@ -1482,20 +1519,48 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
 
     out = {}
-    b, hq, hkv, d = 8, 24, 8, 128
+    b = 8
     lib = _build.load()
-    for key, label, lq, lk, valid, dtype, sets in (
+    m128, m256, g1 = (24, 8, 128), (10, 1, 256), (24, 24, 64)
+    m64, g7 = (24, 8, 64), (28, 4, 128)
+    for key, label, lq, lk, valid, dtype, sets, (hq, hkv, d), window in (
             ("prefill", "prefill [8,1000,24/8,128] bf16 causal", 1000, 1000,
-             1000, torch.bfloat16, 1),
+             1000, torch.bfloat16, 1, m128, 0),
             ("decode", "decode [8,1,24/8,128] bf16, cache 1016, lk_valid 1001",
-             1, 1016, 1001, torch.bfloat16, 4),
+             1, 1016, 1001, torch.bfloat16, 4, m128, 0),
             ("aligned", "aligned [8,1024,24/8,128] bf16 causal", 1024, 1024,
-             1024, torch.bfloat16, 1),
+             1024, torch.bfloat16, 1, m128, 0),
             ("prefill_f32", "prefill [8,1000,24/8,128] f32 causal", 1000,
-             1000, 1000, torch.float32, 1)):
+             1000, 1000, torch.float32, 1, m128, 0),
+            # recurrentgemma-2b: local window, head dim 256, one KV head
+            ("prefill_d256_window", "prefill [8,3000,10/1,256] bf16 causal, "
+             "window 2048", 3000, 3000, 3000, torch.bfloat16, 1, m256, 2048),
+            ("decode_d256_ring", "decode [8,1,10/1,256] bf16, ring 2048, "
+             "lk_valid 2048", 1, 2048, 2048, torch.bfloat16, 4, m256, 0),
+            ("prefill_f32_d256", "prefill [8,1000,10/1,256] f32 causal", 1000,
+             1000, 1000, torch.float32, 1, m256, 0),
+            # recurrentgemma-2b's 4-layer float32 check: the band at L = 3000
+            ("prefill_f32_d256_window", "prefill [8,3000,10/1,256] f32 "
+             "causal, window 2048", 3000, 3000, 3000, torch.float32, 1, m256,
+             2048),
+            # musicgen-medium: MHA, one query head a KV head
+            ("prefill_g1", "prefill [8,1000,24/24,64] bf16 causal", 1000,
+             1000, 1000, torch.bfloat16, 1, g1, 0),
+            ("decode_g1", "decode [8,1,24/24,64] bf16, cache 1016, lk_valid "
+             "1001", 1, 1016, 1001, torch.bfloat16, 4, g1, 0),
+            # granite-moe-3b-a800m: head dim 64, g = 3
+            ("prefill_d64", "prefill [8,1000,24/8,64] bf16 causal", 1000,
+             1000, 1000, torch.bfloat16, 1, m64, 0),
+            ("decode_d64", "decode [8,1,24/8,64] bf16, cache 1016, lk_valid "
+             "1001", 1, 1016, 1001, torch.bfloat16, 4, m64, 0),
+            # qwen2-vl-7b: g = 7
+            ("prefill_g7", "prefill [8,1000,28/4,128] bf16 causal", 1000,
+             1000, 1000, torch.bfloat16, 1, g7, 0),
+            ("decode_g7", "decode [8,1,28/4,128] bf16, cache 1016, lk_valid "
+             "1001", 1, 1016, 1001, torch.bfloat16, 4, g7, 0)):
         # decode: 4 input sets taken in turn (4 x 33 MB of cache > the 50 MB
-        # L2), so each timed call reads its keys from device memory as a
-        # decode step does
+        # L2; 4 x 17 MB of ring at D = 256), so each timed call reads its
+        # keys from device memory as a decode step does
         inputs = [(randn(b, lq, hq, d, dtype=dtype),
                    randn(b, lk, hkv, d, dtype=dtype),
                    randn(b, lk, hkv, d, dtype=dtype)) for _ in range(sets)]
@@ -1503,17 +1568,18 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         route = kfa.flash_route(dtype, lq, hq // hkv)
         tol = K4_BF16_TOL if dtype == torch.bfloat16 else K4_F32_TOL
         before = _build.SITE_LAUNCHES[f"flash_attention/route:{route}"]
-        got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid)
+        got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid,
+                                  window=window)
         if _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] != \
                 before + 1:
             raise SystemExit(f"chip_smoke: K4 {label} did not take route "
                              f"{route}")
         want = kfa.flash_attention_plain(q, k, v, causal=True,
-                                         lk_valid=valid)
+                                         lk_valid=valid, window=window)
         err = close(f"K4 {label} (route {route})", got, want, tol)
-        # (query, key) pairs this input needs: causal, aligned to the end
-        pairs = sum(min(valid, i + valid - lq + 1) for i in range(lq))
-        flops = 4.0 * b * hq * d * pairs
+        # (query, key) pairs this input needs: causal, aligned to the end,
+        # inside the band
+        flops = 4.0 * b * hq * d * visible_pairs(lq, valid, window)
         esize = q.element_size()
         nbytes = esize * (2 * b * lq * hq * d + 2 * b * valid * hkv * d)
         bnd, kind = flop_bound_ms(
@@ -1524,18 +1590,19 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
             return [functools.partial(call, *x) for x in inputs]
 
         kernel = functools.partial(kfa.flash_attention, causal=True,
-                                   lk_valid=valid)
+                                   lk_valid=valid, window=window)
         plain = functools.partial(kfa.flash_attention_plain, causal=True,
-                                  lk_valid=valid)
+                                  lk_valid=valid, window=window)
         row = {"kernel": "flash_attention", "shape": label, "route": route,
                "source": K4_SOURCES[route],
                "ms": time_ms(each(kernel)),
                "call_ms": call_ms(lambda: kernel(q, k, v)),
                "plain_ms": time_ms(each(plain)),
-               "library_ms": time_ms([sdpa_call(*x, valid) for x in inputs]),
+               "library_ms": time_ms([sdpa_call(*x, valid, window)
+                                      for x in inputs]),
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
                "tolerance": tol}
-        if dtype == torch.bfloat16:
+        if dtype == torch.bfloat16 and (hq, hkv, d) == m128:
             # the earlier design (float32 FMA on the CUDA cores, one block
             # per 64 rows), called through its C entry on the same inputs:
             # timed only, never counted and never on the path
@@ -1544,6 +1611,46 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         log(json.dumps(row))
         out[f"flash_attention/{key}"] = row
         del q, k, v, got, want, inputs
+
+    # the other float32 shapes that the 4-layer float32 checks of phases 7
+    # and 16 give K4 (prefill of the new families at L = 1000, every decode
+    # step): held against the plain version on the same inputs, not timed
+    f32 = torch.float32
+    for key, label, lq, lk, valid, (hq, hkv, d) in (
+            ("decode_f32", "decode [8,1,24/8,128] f32, cache 1016, lk_valid "
+             "1001", 1, 1016, 1001, m128),
+            ("prefill_f32_d64", "prefill [8,1000,24/8,64] f32 causal", 1000,
+             1000, 1000, m64),
+            ("decode_f32_d64", "decode [8,1,24/8,64] f32, cache 1016, "
+             "lk_valid 1001", 1, 1016, 1001, m64),
+            ("prefill_f32_g7", "prefill [8,1000,28/4,128] f32 causal", 1000,
+             1000, 1000, g7),
+            ("decode_f32_g7", "decode [8,1,28/4,128] f32, cache 1016, "
+             "lk_valid 1001", 1, 1016, 1001, g7),
+            ("prefill_f32_g1", "prefill [8,1000,24/24,64] f32 causal", 1000,
+             1000, 1000, g1),
+            ("decode_f32_g1", "decode [8,1,24/24,64] f32, cache 1016, "
+             "lk_valid 1001", 1, 1016, 1001, g1),
+            ("decode_f32_d256_ring", "decode [8,1,10/1,256] f32, ring 2048, "
+             "lk_valid 2048", 1, 2048, 2048, m256)):
+        q = randn(b, lq, hq, d, dtype=f32)
+        k, v = randn(b, lk, hkv, d, dtype=f32), randn(b, lk, hkv, d, dtype=f32)
+        route = kfa.flash_route(f32, lq, hq // hkv)
+        before = _build.SITE_LAUNCHES[f"flash_attention/route:{route}"]
+        got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid)
+        if _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] != \
+                before + 1:
+            raise SystemExit(f"chip_smoke: K4 {label} did not take route "
+                             f"{route}")
+        want = kfa.flash_attention_plain(q, k, v, causal=True, lk_valid=valid)
+        row = {"kernel": "flash_attention", "shape": label, "route": route,
+               "source": K4_SOURCES[route], "timed": False,
+               "max_abs_err": close(f"K4 {label} (route {route})", got, want,
+                                    K4_F32_TOL),
+               "tolerance": K4_F32_TOL}
+        log(json.dumps(row))
+        out[f"flash_attention/{key}"] = row
+        del q, k, v, got, want
 
     bh, n = 512, 64
     for key, t, with_s0, heads in (
@@ -1602,10 +1709,10 @@ def plain_path(kops, kfa, kwkv, bf16_inputs: bool = False):
         return x.to(torch.bfloat16).to(x.dtype) if bf16_inputs else x
 
     def attention(q, k, v, *, causal=True, scale=None, lk_valid=None,
-                  site=None):
+                  window=0, site=None):
         return kfa.flash_attention_plain(rnd(q), rnd(k), rnd(v),
                                          causal=causal, scale=scale,
-                                         lk_valid=lk_valid)
+                                         lk_valid=lk_valid, window=window)
 
     def wkv(r, k, v, log_w, u, s0=None):
         return kwkv.wkv_chunked_plain(rnd(r), rnd(k), rnd(v), rnd(log_w), u,
@@ -1637,13 +1744,44 @@ def rel_l2(got: torch.Tensor, want: torch.Tensor) -> list[float]:
     return (num / den).tolist()
 
 
+def rel_check(name: str, got, plain, exact) -> dict:
+    """The bf16 rule: at every position the kernel path's logits no further
+    from the float32 plain path than the bf16 plain path's, within
+    SERVE_BF16_MARGIN; fails otherwise.  Returns the distances."""
+    rel = rel_l2(got, plain)
+    rel_kernel, rel_plain = rel_l2(got, exact), rel_l2(plain, exact)
+    if not all(k <= SERVE_BF16_MARGIN * p for k, p in zip(rel_kernel,
+                                                           rel_plain)):
+        raise SystemExit(f"chip_smoke: {name}: the kernel path is further "
+                         "from the float32 plain path than the bf16 plain "
+                         f"path: {rel_kernel} vs {rel_plain}")
+    return {"rel_l2_vs_plain": rel, "rel_l2_kernel_vs_fp32": rel_kernel,
+            "rel_l2_plain_vs_fp32": rel_plain, "margin": SERVE_BF16_MARGIN}
+
+
+def check_sites(name: str, sites: dict, n_attn: int, steps: int,
+                prefill_route: str) -> None:
+    """One K4 launch per attention layer at the prefill (on
+    ``prefill_route``) and per layer and decode step (route "decode"), and
+    no other."""
+    want = {"flash_attention/full": n_attn,
+            "flash_attention/decode": n_attn * steps,
+            f"flash_attention/route:{prefill_route}": n_attn,
+            "flash_attention/route:decode": n_attn * steps}
+    if sites != want:
+        raise SystemExit(f"chip_smoke: {name}: K4 launches {sites}, want "
+                         f"{want}")
+
+
 def kernel_groups(prof, kernels: dict[str, str]) -> dict:
     """Device time of a profiled window by group: our kernels by name,
-    GEMMs, everything else."""
+    GEMMs, everything else.  The device-side spans of the port's
+    ``repro_torch.*`` ranges are not kernels and are left out."""
     from torch.autograd import DeviceType
     groups: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        if e.device_type != DeviceType.CUDA or e.name.startswith(
+                "repro_torch."):
             continue
         name = e.name
         group = next((g for g, pat in kernels.items() if pat in name), None)
@@ -1727,14 +1865,8 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
                  "steps": steps})
     if counts[kernel] == 0:
         raise SystemExit(f"chip_smoke: {name} did not launch {kernel}")
-    if kernel == "flash_attention" and sites != {
-            "flash_attention/full": nl,
-            "flash_attention/decode": nl * rec["decode_steps"],
-            "flash_attention/route:mma": nl,
-            "flash_attention/route:decode": nl * rec["decode_steps"]}:
-        raise SystemExit(f"chip_smoke: {name}: K4 not in every layer of the "
-                         "prefill (route mma) and of every decode step "
-                         f"(route decode): {sites}")
+    if kernel == "flash_attention":
+        check_sites(name, sites, nl, rec["decode_steps"], "mma")
     if kernel == "wkv_chunked" and counts[kernel] != nl:
         raise SystemExit(f"chip_smoke: {name}: K5 not in every layer of the "
                          f"prefill: {counts}")
@@ -1752,12 +1884,10 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
         plain = teacher_forced(model, params, toks)
         if any(_build.LAUNCHES.values()):
             raise SystemExit("chip_smoke: the plain path launched a kernel")
-    rel = rel_l2(got, plain)
     # the float32 plain path at full depth: how far each bf16 path is from it
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     with plain_path(kops, kfa, kwkv):
         exact = teacher_forced(model_lib.get_model(cfg32), params, toks)
-    rel_kernel, rel_plain = rel_l2(got, exact), rel_l2(plain, exact)
     res = {"arch": arch, "layers": nl, "dtype": cfg.dtype,
            "params_b": sum(x.numel() for x in _leaves(params)) / 1e9,
            "init_s": init_s, "prefill_s": rec["prefill_s"],
@@ -1765,20 +1895,13 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
            "prefill_tok_per_s": PROMPTS * PROMPT_LEN / rec["prefill_s"],
            "decode_tok_per_s": PROMPTS * rec["decode_steps"] / rec["decode_s"],
            "peak_gb": peak_gb, "launches": counts, "sites": sites,
-           "rel_l2_vs_plain": rel, "rel_l2_kernel_vs_fp32": rel_kernel,
-           "rel_l2_plain_vs_fp32": rel_plain, "margin": SERVE_BF16_MARGIN}
+           **rel_check(name, got, plain, exact)}
     del plain, exact
     log(json.dumps(res))
-    if not all(k <= SERVE_BF16_MARGIN * p for k, p in zip(rel_kernel,
-                                                           rel_plain)):
-        raise SystemExit(f"chip_smoke: {name}: the kernel path is further "
-                         "from the float32 plain path than the bf16 plain "
-                         f"path: {rel_kernel} vs {rel_plain}")
 
     # full width, 4 layers, float32 (TF32 off): a tight check
     cfg4 = dataclasses.replace(cfg, num_layers=min(4, nl), dtype="float32")
-    params4 = dict(params, blocks={k: w[:cfg4.num_layers] for k, w in
-                                   params["blocks"].items()})
+    params4 = slice_layers(params, cfg4.num_layers)
     model4 = model_lib.get_model(cfg4)
     _build.reset_launches()
     rec4: dict = {}
@@ -1790,14 +1913,9 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
                  "steps": 1 + rec4["decode_steps"]})
     if _build.LAUNCHES[kernel] == 0:
         raise SystemExit(f"chip_smoke: {name4} did not launch {kernel}")
-    nl4, steps4 = cfg4.num_layers, rec4["decode_steps"]
-    if kernel == "flash_attention" and dict(_build.SITE_LAUNCHES) != {
-            "flash_attention/full": nl4, "flash_attention/decode": nl4 * steps4,
-            "flash_attention/route:f32": nl4,
-            "flash_attention/route:decode": nl4 * steps4}:
-        raise SystemExit(f"chip_smoke: {name4}: K4 not on route f32 at the "
-                         "prefill and route decode at every step: "
-                         f"{dict(_build.SITE_LAUNCHES)}")
+    if kernel == "flash_attention":
+        check_sites(name4, dict(_build.SITE_LAUNCHES), cfg4.num_layers,
+                    rec4["decode_steps"], "f32")
     got4 = torch.stack(rec4["logits"], dim=1)
     with plain_path(kops, kfa, kwkv):
         plain4 = teacher_forced(model4, params4, toks4)
@@ -1833,10 +1951,371 @@ def phase_serve(arch: str, kernel: str, runs: list, seed: int) -> dict:
 
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        tree = list(tree.values())
+    if isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
+
+
+# ---------------------------------------------------------------------------
+# the moe, vlm, audio and hybrid families (phase 16)
+# ---------------------------------------------------------------------------
+
+# (phase, architecture, prompt positions, seed): 8 requests each, 16 greedy
+# tokens.  The vlm's 1000 positions are 256 patch embeddings and 744 text
+# tokens; the hybrid's 3000 tokens are past its 2048-key window, not a
+# multiple of the reference's 1024 block, and 3000 % 2048 != 0, so the
+# ring's roll and its wrap at decode both run
+FAMILIES = (("16a", "granite-moe-3b-a800m", 1000, 2),
+            ("16b", "qwen2-vl-7b", 1000, 3),
+            ("16c", "musicgen-medium", 1000, 4),
+            ("16d", "recurrentgemma-2b", 3000, 5))
+PROFILED = {"granite-moe-3b-a800m", "recurrentgemma-2b"}
+PATCH_SIDE = 16   # the vlm's 256 patches on a 16 x 16 grid
+
+
+def family_batch(cfg, positions: int, seed: int) -> dict:
+    """The requests of a phase-16 run on the card: [8, P] token ids; for
+    the vlm 256 seeded patch embeddings, then the text, with M-RoPE
+    positions t = 0, h = i // 16, w = i % 16 for the patches and 16, 17,
+    ... in all three components for the text."""
+    dev = torch.device("cuda")
+    p = cfg.frontend_len if cfg.frontend == "patch" else 0
+    tokens = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (PROMPTS, positions - p))
+    batch = {"tokens": torch.as_tensor(tokens, device=dev)}
+    if p:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        batch["patch_embeds"] = torch.randn(
+            (PROMPTS, p, cfg.frontend_dim), generator=gen, device=dev)
+        i = torch.arange(p, device=dev)
+        grid = torch.stack([torch.zeros_like(i), i // PATCH_SIDE,
+                            i % PATCH_SIDE])
+        text = (PATCH_SIDE + torch.arange(positions - p, device=dev)).expand(
+            3, -1)
+        batch["positions"] = torch.cat([grid, text], 1).expand(
+            PROMPTS, 3, positions)
+    return batch
+
+
+def serve_family(cfg, params, batch: dict, rec: dict) -> torch.Tensor:
+    """Greedy serving of ``batch``: ``serve.generate`` for token prompts,
+    ``make_prefill_step``/``make_decode_step`` for the vlm's patch prefix
+    (``generate`` takes tokens only, as the reference's does).  Returns the
+    [8, GEN] generated tokens; ``rec`` as ``generate`` fills it."""
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    if "patch_embeds" not in batch:
+        toks = serve.generate(cfg, params, batch["tokens"].cpu().numpy(),
+                              GEN, record=rec)
+        return torch.as_tensor(toks[:, -GEN:], device="cuda",
+                               dtype=torch.long)
+    total = batch["tokens"].shape[1] + cfg.frontend_len
+    prefill = model_lib.make_prefill_step(cfg, total + GEN)
+    decode = model_lib.make_decode_step(cfg)
+    col_ok = torch.arange(cfg.padded_vocab, device="cuda") < cfg.vocab_size
+
+    def pick(logits):
+        return torch.argmax(torch.where(col_ok, logits.float(), -torch.inf),
+                            dim=-1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    torch.cuda.synchronize()
+    rec["prefill_s"] = time.perf_counter() - t0
+    kept, out = [logits], []
+    t0 = time.perf_counter()
+    tok = pick(logits)
+    for i in range(GEN):
+        out.append(tok[:, None])
+        if i == GEN - 1:
+            break
+        logits, cache = decode(params, cache, tok[:, None])
+        kept.append(logits)
+        tok = pick(logits)
+    torch.cuda.synchronize()
+    rec.update(logits=kept, decode_s=time.perf_counter() - t0,
+               decode_steps=GEN - 1)
+    return torch.cat(out, dim=1)
+
+
+def forced_logits(model, params, batch: dict, generated: torch.Tensor,
+                  stepwise: bool) -> torch.Tensor:
+    """Logits [8, GEN, Vp] that picked each generated token, recomputed:
+    one teacher-forced forward over the prompt and the generated tokens
+    (unembedding only those positions; the vlm's added text positions take
+    all three components at the cache position, as a decode step rotates
+    them, ROADMAP R6), or, with ``stepwise``, the served run's prefill and
+    decode steps fed the generated tokens.  The moe family takes the
+    second: a forward over 8 x 1015 tokens routes in other groups (of 8,
+    capacity 4) than a prefill of 8 x 1000 (groups of 64) and steps of 8,
+    so it computes another function."""
+    from repro_torch.models import layers
+    total = batch["tokens"].shape[1]
+    if "patch_embeds" in batch:
+        total += batch["patch_embeds"].shape[1]
+    if stepwise:
+        logits, cache = model.prefill(params, batch, total + GEN)
+        out = [logits]
+        for i in range(GEN - 1):
+            logits, cache = model.decode_step(params, cache,
+                                              generated[:, i:i + 1])
+            out.append(logits)
+        return torch.stack(out, dim=1)
+    forced = dict(batch, tokens=torch.cat([batch["tokens"],
+                                           generated[:, :-1]], dim=1))
+    if "positions" in batch:
+        extra = (total + torch.arange(GEN - 1, device="cuda")).expand(
+            PROMPTS, 3, GEN - 1)
+        forced["positions"] = torch.cat([batch["positions"], extra], dim=2)
+    h, _, _ = model.forward(params, forced, unembed=False)
+    return layers.dense(h[:, total - 1:], params["head"])
+
+
+@contextlib.contextmanager
+def moe_routes(moe_lib, routes: list):
+    """Record each MoE layer's top-k experts per token (sorted) in
+    ``routes`` while the block runs."""
+    dispatch = moe_lib._top_k_dispatch
+
+    def spy(probs, k, capacity):
+        routes.append(torch.topk(probs, k, dim=-1).indices.sort(-1).values)
+        return dispatch(probs, k, capacity)
+
+    moe_lib._top_k_dispatch = spy
+    try:
+        yield routes
+    finally:
+        moe_lib._top_k_dispatch = dispatch
+
+
+@contextlib.contextmanager
+def no_plain_attention(kfa):
+    """Fail the block if K4's wrapper ran a plain version (it does so only
+    for CPU tensors)."""
+    plain = kfa.flash_attention_plain
+    calls = []
+
+    def spy(*args, **kw):
+        calls.append(args[0].device)
+        return plain(*args, **kw)
+
+    kfa.flash_attention_plain = spy
+    try:
+        yield
+    finally:
+        kfa.flash_attention_plain = plain
+    if calls:
+        raise SystemExit(f"chip_smoke: plain attention ran on {calls[:3]}")
+
+
+def slice_layers(params: dict, n: int) -> dict:
+    """The first ``n`` layers' parameters (stacked tensors or the hybrid's
+    list of per-layer dicts)."""
+    blocks = params["blocks"]
+    if isinstance(blocks, list):
+        return dict(params, blocks=blocks[:n])
+    return dict(params, blocks={k: w[:n] for k, w in blocks.items()})
+
+
+def range_kernel_ms(prof, name: str) -> float:
+    """Device ms of the kernels that run inside the device-side spans of
+    the profiler range ``name`` (one stream, so a kernel inside a span was
+    launched inside the range)."""
+    import bisect
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs
+                   if e.name == name)
+    starts = [a for a, _ in spans]
+    total = 0.0
+    for e in evs:
+        if e.name.startswith("repro_torch."):
+            continue
+        i = bisect.bisect_right(starts, e.time_range.start) - 1
+        if i >= 0 and e.time_range.start < spans[i][1]:
+            total += e.time_range.elapsed_us() / 1e3
+    return total
+
+
+def profile_family(model, params, batch: dict, max_len: int) -> dict:
+    """A profiled prefill and four decode steps: device ms by group (K4 as
+    ``attention``, GEMMs, the rest), the ms of the kernels inside the
+    ``repro_torch.rglru`` range (the hybrid's convolution and recurrence,
+    GEMMs of its gates included: a part of ``gemm`` and ``other``, not a
+    group beside them) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def window(fn, n):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / n
+        groups = {g: ms / n for g, ms in kernel_groups(
+            prof, {"attention": "flash_"}).items()}
+        rglru = range_kernel_ms(prof, "repro_torch.rglru") / n
+        busy = sum(groups.values())
+        out = {"wall_ms": wall, "kernel_ms": busy,
+               "device_idle_share": 1 - busy / wall,
+               "kernel_ms_by_group": groups}
+        if rglru:
+            out["rglru_range_ms"] = rglru
+        return res, out
+
+    (logits, cache), pre = window(
+        lambda: model.prefill(params, batch, max_len), 1)
+    tok = logits.argmax(-1)[:, None]
+
+    def steps():
+        c = cache
+        for _ in range(4):
+            _, c = model.decode_step(params, c, tok)
+
+    _, dec = window(steps, 4)
+    return {"prefill": pre, "decode_step": dec}
+
+
+def phase_family(phase: str, arch: str, positions: int, seed: int,
+                 runs: list) -> dict:
+    """Serve ``arch`` at full width and depth through the port's entry
+    points and hold every picked token's logits against the plain path and
+    the float32 plain path; every attention launch K4 (route "mma" at the
+    prefill, "decode" at each step), no plain attention on the card; the
+    moe family's routing differences from the plain path (printed, not a
+    gate); the 4-layer float32 check; a profile for the moe and the
+    hybrid.  Frees the model before it returns."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import serve
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe as moe_lib
+
+    cfg = get_config(arch)
+    nl, n_attn = cfg.num_layers, cfg.layer_kinds.count("attn")
+    stepwise = bool(cfg.num_experts)
+    model = model_lib.get_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init_params(seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = family_batch(cfg, positions, seed)
+    serve.generate(cfg, params, batch["tokens"][:, :64].cpu().numpy(), 2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    _build.reset_launches()
+    rec: dict = {}
+    with no_plain_attention(kfa):
+        generated = serve_family(cfg, params, batch, rec)
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+    steps = rec["decode_steps"]
+    name = (f"phase {phase} {arch} 8x{positions}+{GEN}, {nl} layers, "
+            f"{cfg.dtype}")
+    runs.append({"path": name, "launches": counts, "sites": sites,
+                 "steps": 1 + steps})
+    check_sites(name, sites, n_attn, steps, "mma")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    got = torch.stack(rec["logits"], dim=1)
+    if got.shape != (PROMPTS, GEN, cfg.padded_vocab) or not bool(
+            torch.isfinite(got).all()) or int(generated.max()) >= \
+            cfg.vocab_size:
+        raise SystemExit(f"chip_smoke: {name}: logits {tuple(got.shape)} "
+                         "not finite, or a padded column picked")
+    plain_routes: list = []
+    with plain_path(kops, kfa, kwkv), moe_routes(moe_lib, plain_routes):
+        _build.reset_launches()
+        plain = forced_logits(model, params, batch, generated, stepwise)
+        if any(_build.LAUNCHES.values()):
+            raise SystemExit("chip_smoke: the plain path launched a kernel")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    with plain_path(kops, kfa, kwkv):
+        exact = forced_logits(model_lib.get_model(cfg32), params, batch,
+                              generated, stepwise)
+    res = {"phase": phase, "arch": arch, "layers": nl,
+           "attention_layers": n_attn, "dtype": cfg.dtype,
+           "params_b": sum(x.numel() for x in _leaves(params)) / 1e9,
+           "init_s": init_s, "prefill_s": rec["prefill_s"],
+           "decode_s": rec["decode_s"], "decode_steps": steps,
+           "prefill_tok_per_s": PROMPTS * positions / rec["prefill_s"],
+           "decode_tok_per_s": PROMPTS * steps / rec["decode_s"],
+           "peak_gb": peak_gb, "launches": counts, "sites": sites,
+           "plain_path": "stepwise" if stepwise else "one forward",
+           **rel_check(name, got, plain, exact)}
+    if stepwise:
+        # token-layer routings whose expert set differs (near-ties flip with
+        # one bf16 ulp of attention): informative, not a gate.  The kernel
+        # path's routes come from a replay of the served prefill and steps
+        # outside the timed run
+        routes: list = []
+        with no_plain_attention(kfa), moe_routes(moe_lib, routes):
+            forced_logits(model, params, batch, generated, stepwise)
+        if [r.shape for r in routes] != [r.shape for r in plain_routes]:
+            raise SystemExit(f"chip_smoke: {name}: the plain path routed "
+                             "other groups")
+        res["moe_routings"] = sum(r.numel() // r.shape[-1] for r in routes)
+        res["moe_routings_differing_from_plain"] = sum(
+            int((a != b).any(-1).sum()) for a, b in zip(routes,
+                                                        plain_routes))
+        del routes
+    del plain, exact, plain_routes
+    log(json.dumps(res))
+
+    # full width, 4 layers, float32 (TF32 off): the tight check, and a
+    # bf16-rounding plain path must fail it
+    cfg4 = dataclasses.replace(cfg, num_layers=min(4, nl), dtype="float32")
+    params4 = slice_layers(params, cfg4.num_layers)
+    n4 = cfg4.layer_kinds.count("attn")
+    _build.reset_launches()
+    rec4: dict = {}
+    with no_plain_attention(kfa):
+        gen4 = serve_family(cfg4, params4, batch, rec4)
+    name4 = f"phase {phase} {arch} 8x{positions}+{GEN}, 4 layers, float32"
+    runs.append({"path": name4, "launches": dict(_build.LAUNCHES),
+                 "sites": dict(_build.SITE_LAUNCHES),
+                 "steps": 1 + rec4["decode_steps"]})
+    check_sites(name4, dict(_build.SITE_LAUNCHES), n4,
+                rec4["decode_steps"], "f32")
+    got4 = torch.stack(rec4["logits"], dim=1)
+    model4 = model_lib.get_model(cfg4)
+    with plain_path(kops, kfa, kwkv):
+        plain4 = forced_logits(model4, params4, batch, gen4, stepwise)
+    with plain_path(kops, kfa, kwkv, bf16_inputs=True):
+        bf16_4 = forced_logits(model4, params4, batch, gen4, stepwise)
+    rel4, rel_bf16 = rel_l2(got4, plain4), rel_l2(bf16_4, plain4)
+    res["fp32_4_layers"] = {"rel_l2_vs_plain": rel4,
+                            "tolerance": SERVE_FP32_TOL,
+                            "rel_l2_bf16_rounding_plain_vs_plain":
+                                max(rel_bf16),
+                            "sites": dict(_build.SITE_LAUNCHES)}
+    log(json.dumps({"phase": phase, "arch": arch,
+                    **res["fp32_4_layers"]}))
+    if not max(rel4) <= SERVE_FP32_TOL:
+        raise SystemExit(f"chip_smoke: {name4}: logits disagree with the "
+                         f"plain path: rel L2 {max(rel4)}")
+    if not max(rel_bf16) > SERVE_FP32_TOL:
+        raise SystemExit(f"chip_smoke: {name4}: the float32 tolerance "
+                         "does not separate a bf16 computation")
+    del got4, plain4, bf16_4, params4, model4
+
+    if arch in PROFILED:
+        res["profile"] = profile_family(model, params, batch,
+                                        positions + GEN)
+        log(json.dumps({"profile": f"phase {phase} {arch} full depth",
+                        **res["profile"]}))
+    del params, model, got, rec, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
 
 
 def phases_11_to_13(card, graphs, kell, lp, traffic, het, figures, topo512,
@@ -2032,7 +2511,17 @@ def main() -> None:
     finally:
         lp_pool.shutdown(cancel_futures=True)
 
-    # phase 16: summary
+    # phase 16: the moe, vlm, audio and hybrid families at full width and
+    # depth (K4 with the local window and head dim 256 on the hybrid)
+    for phase, arch, positions, seed in FAMILIES:
+        t0 = time.perf_counter()
+        served[arch] = phase_family(phase, arch, positions, seed, runs)
+        log(f"{card}: phase {phase} {arch} prefill "
+            f"{served[arch]['prefill_tok_per_s']:.1f} tok/s, decode "
+            f"{served[arch]['decode_tok_per_s']:.1f} tok/s (phase wall "
+            f"{time.perf_counter() - t0:.1f} s)")
+
+    # phase 17: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "
@@ -2090,7 +2579,7 @@ def main() -> None:
                 f: v for f, v in row.items() if f in (
                     "shape", "route", "source", "ms", "call_ms", "plain_ms",
                     "library_ms", "cuda_core_ms", "bound_ms", "bound_kind",
-                    "max_abs_err")}
+                    "max_abs_err", "timed")}
                 for k, row in lm_timed.items() if k.startswith(name + "/")}
         kernels.append(entry)
     log(json.dumps({"serving": {

@@ -4,9 +4,10 @@
 //     O[b, i, h] = softmax_j(scale * Q[b, i, h] . K[b, j, h / g]) V[b, j, h / g]
 //
 // over the keys j < lk_valid that row i may see: with causal masking, j <=
-// i + (lk_valid - Lq), the diagonal aligned to the end of the valid keys.  A
-// row that sees no key gives 0.  Inputs and output are bf16; the softmax and
-// both products accumulate in float32.
+// i + (lk_valid - Lq), the diagonal aligned to the end of the valid keys, and
+// with a local window > 0 also j > i + (lk_valid - Lq) - window.  A row that
+// sees no key gives 0.  Inputs and output are bf16; the softmax and both
+// products accumulate in float32.
 //
 // Replaces the TPU kernel `_flash_kernel` (repro/kernels/flash_attention.py,
 // via `flash_attention_pallas`) on its bf16 prefill calls; the decode calls
@@ -39,9 +40,17 @@
 //   filled by 16-byte `cp.async` copies, so the next tile loads while this
 //   one computes.  Row pitches are padded by 16 bytes, which makes the 8
 //   rows of every `ldmatrix` hit distinct banks.
-// - The head dim is zero-padded in shared memory to DP = 16, 32, 64 or 128.
-//   Views whose rows are not 16-byte aligned (odd head dims) are copied by
-//   plain loads instead of `cp.async`; everything else is the same.
+// - The head dim is zero-padded in shared memory to DP = 16, 32, 64, 128 or
+//   256.  Views whose rows are not 16-byte aligned (odd head dims) are copied
+//   by plain loads instead of `cp.async`; everything else is the same.  At
+//   DP = 256 (recurrentgemma-2b) a warp's 16 x 256 float32 O accumulator is
+//   128 registers a thread; Q stays in shared memory as at every DP, and the
+//   block takes up to 255 registers, 2 blocks (8 warps) an SM.
+// - A local window starts the key loop at the tile that holds the first key
+//   of the block's first row's band and skips the tiles wholly left of it, so
+//   a banded prefill does O(L * (window + tile)) work, as the reference's
+//   `_attention_banded` does; a warp skips a tile wholly left of its own
+//   rows' bands, and masks only a tile that straddles a band's left edge.
 // - Key tiles wholly past lk_valid or past the causal diagonal of the block's
 //   last row are never loaded, a warp skips a tile wholly past its own rows'
 //   diagonal, and the element mask is applied only on tiles that straddle a
@@ -60,6 +69,7 @@ namespace {
 constexpr int ROWS = 64;      // (query position, group head) rows per block
 constexpr int BK = 32;        // keys per tile
 constexpr int THREADS = 128;  // 4 warps of 16 rows
+constexpr int MIN_BLOCKS = 3; // blocks an SM for DP <= 128 (<= 168 registers)
 constexpr float NEG = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -134,11 +144,12 @@ __device__ __forceinline__ void copy_chunk(bf16* dst, const bf16* src, int n,
 }
 
 template <int DP>
-__global__ void __launch_bounds__(THREADS, 3)
+__global__ void __launch_bounds__(THREADS, DP > 128 ? 2 : MIN_BLOCKS)
 flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v, int lq, int lk_valid,
-                           int g, int d, int causal, float scale_log2,
+                           int g, int d, int causal, int window,
+                           float scale_log2,
                            int hkv, int nrb, int vec,
                            long long sq_b, long long sq_l, long long sq_h,
                            long long sk_b, long long sk_l, long long sk_h,
@@ -163,8 +174,10 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
     int kend = lk_valid;
     if (causal) kend = min(kend, last_row / g + offset + 1);
     const int ntiles = kend > 0 ? (kend + BK - 1) / BK : 0;
+    // the first tile the band of the block's first row reaches
+    const int t0 = window > 0 ? max(0, r0 / g + offset - window + 1) / BK : 0;
 
-    if (ntiles == 0) {  // no row of the block sees a key
+    if (t0 >= ntiles) {  // no row of the block sees a key
         for (int e = tid; e < ROWS * d; e += THREADS) {
             const int gr = r0 + e / d;
             if (gr >= nrows) break;
@@ -203,7 +216,7 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
         }
         copy_chunk(qs + r * PITCH + 8 * c, src, n, vec);
     }
-    load_kv(0);
+    load_kv(t0);
     cp_async_commit();
 
     // this thread's two rows of the warp's 16: lane / 4 and lane / 4 + 8
@@ -221,7 +234,7 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
         for (int u = 0; u < 4; ++u) acc[i][u] = 0.0f;
     float m_a = NEG, m_b = NEG, l_a = 0.0f, l_b = 0.0f;
 
-    for (int t = 0; t < ntiles; ++t) {
+    for (int t = t0; t < ntiles; ++t) {
         if (t + 1 < ntiles) {
             load_kv(t + 1);
             cp_async_commit();
@@ -231,7 +244,8 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
         }
         __syncthreads();
         const int k0 = t * BK;
-        if (warp_active && !(causal && k0 > qpos_last)) {
+        if (warp_active && !(causal && k0 > qpos_last)
+            && !(window > 0 && k0 + BK - 1 <= qpos_first - window)) {
             const bf16* kt = ks + (t & 1) * BK * PITCH;
             const bf16* vt = vs + (t & 1) * BK * PITCH;
 
@@ -258,7 +272,8 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
 
             // mask (only a tile that straddles a boundary), running max
             const bool edge = k0 + BK > lk_valid
-                              || (causal && k0 + BK - 1 > qpos_first);
+                              || (causal && k0 + BK - 1 > qpos_first)
+                              || (window > 0 && k0 <= qpos_last - window);
             float mx_a = NEG, mx_b = NEG;
 #pragma unroll
             for (int nt = 0; nt < BK / 8; ++nt) {
@@ -268,8 +283,12 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
                     if (edge) {
                         const int kp = k0 + nt * 8 + (lane % 4) * 2 + u;
                         const bool in = kp < lk_valid;
-                        if (!(in && (!causal || kp <= qpos_a))) xa = NEG;
-                        if (!(in && (!causal || kp <= qpos_b))) xb = NEG;
+                        if (!(in && (!causal || kp <= qpos_a)
+                              && (window <= 0 || kp > qpos_a - window)))
+                            xa = NEG;
+                        if (!(in && (!causal || kp <= qpos_b)
+                              && (window <= 0 || kp > qpos_b - window)))
+                            xb = NEG;
                     }
                     s[nt][u] = xa;
                     s[nt][2 + u] = xb;
@@ -368,7 +387,7 @@ flash_attention_mma_kernel(bf16* o, const bf16* __restrict__ q,
 
 template <int DP>
 int launch(void* o, const void* q, const void* k, const void* v, int batch,
-           int lq, int lk_valid, int g, int hkv, int d, int causal,
+           int lq, int lk_valid, int g, int hkv, int d, int causal, int window,
            float scale, int vec, const long long* st, cudaStream_t stream) {
     const int smem = (ROWS + 4 * BK) * (DP + 8) * static_cast<int>(sizeof(bf16));
     cudaError_t err = cudaFuncSetAttribute(
@@ -380,8 +399,8 @@ int launch(void* o, const void* q, const void* k, const void* v, int batch,
     flash_attention_mma_kernel<DP><<<grid, THREADS, smem, stream>>>(
         static_cast<bf16*>(o), static_cast<const bf16*>(q),
         static_cast<const bf16*>(k), static_cast<const bf16*>(v), lq, lk_valid,
-        g, d, causal, scale * LOG2E, hkv, nrb, vec, st[0], st[1], st[2], st[3],
-        st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
+        g, d, causal, window, scale * LOG2E, hkv, nrb, vec, st[0], st[1],
+        st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11]);
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -391,18 +410,19 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// bf16 only.  Strides are in elements: (batch, row, head) for q, k, v and o
-// in that order; the head-dim axis is contiguous.
+// bf16 only, head dim <= 256; window 0 means none.  Strides are in elements:
+// (batch, row, head) for q, k, v and o in that order; the head-dim axis is
+// contiguous.
 extern "C" int flash_attention_mma(void* o, const void* q, const void* k,
                                    const void* v, int batch, int lq,
                                    int lk_valid, int hq, int hkv, int d,
-                                   int causal, float scale,
+                                   int causal, int window, float scale,
                                    long long sq_b, long long sq_l, long long sq_h,
                                    long long sk_b, long long sk_l, long long sk_h,
                                    long long sv_b, long long sv_l, long long sv_h,
                                    long long so_b, long long so_l, long long so_h,
                                    void* stream) {
-    if (d <= 0 || d > 128 || hkv <= 0 || hq % hkv != 0)
+    if (d <= 0 || d > 256 || hkv <= 0 || hq % hkv != 0 || window < 0)
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch <= 0 || lq <= 0) return static_cast<int>(cudaGetLastError());
     const int g = hq / hkv;
@@ -417,13 +437,16 @@ extern "C" int flash_attention_mma(void* o, const void* q, const void* k,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     if (d <= 16)
         return launch<16>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
-                          scale, vec, st, s);
+                          window, scale, vec, st, s);
     if (d <= 32)
         return launch<32>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
-                          scale, vec, st, s);
+                          window, scale, vec, st, s);
     if (d <= 64)
         return launch<64>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
-                          scale, vec, st, s);
-    return launch<128>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
-                       scale, vec, st, s);
+                          window, scale, vec, st, s);
+    if (d <= 128)
+        return launch<128>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
+                           window, scale, vec, st, s);
+    return launch<256>(o, q, k, v, batch, lq, lk_valid, g, hkv, d, causal,
+                       window, scale, vec, st, s);
 }

@@ -6,8 +6,9 @@
 //     O[b, i, h] = softmax_j(scale * Q[b, i, h] . K[b, j, h / g]) V[b, j, h / g]
 //
 // over the keys j < lk_valid that row i may see (with causal masking j <=
-// i + (lk_valid - Lq)); a row that sees no key gives 0.  float32 or bf16 in
-// and out, float32 math throughout.
+// i + (lk_valid - Lq), with a local window > 0 also j > i + (lk_valid - Lq) -
+// window); a row that sees no key gives 0.  float32 or bf16 in and out,
+// float32 math throughout.
 //
 // Replaces the TPU kernel `_flash_kernel` (repro/kernels/flash_attention.py,
 // via `flash_attention_pallas`) on its decode calls, where the reference's
@@ -28,8 +29,11 @@
 //   computes each row's scores, its max m, its sum l of exp(s - m) and the
 //   unnormalised acc = sum_j exp(s_j - m) v_j, written to float32 scratch
 //   that the wrapper allocates.  A split wholly past the keys the rows may
-//   see writes m = -1e30, l = 0 and loads nothing.  Each row applies the
-//   lk_valid and causal mask itself.
+//   see, or wholly left of the window's band, writes m = -1e30, l = 0 and
+//   loads nothing.  Each row applies the lk_valid, causal and window mask
+//   itself.
+// - The block has one thread per head-dim lane of the widest head it takes:
+//   DM = 128 threads up to D = 128, 256 for D = 256 (recurrentgemma-2b).
 // - The combine kernel, one block per (batch x KV head, row) and one thread
 //   per dim, merges the splits in ascending split order: M = max m_s over
 //   splits with l_s > 0, O = sum e^(m_s - M) acc_s / sum e^(m_s - M) l_s,
@@ -44,11 +48,8 @@ namespace {
 
 constexpr int SPLIT = 64;     // keys per split (one block)
 constexpr int RMAX = 16;      // rows (query position x group head) per head
-constexpr int DMAX = 128;     // largest head dim
-constexpr int THREADS = 128;
-constexpr int RG = THREADS / SPLIT;  // row groups of the score pass
-static_assert(THREADS == DMAX, "one thread per head dim in the Q load and combine");
-static_assert(SPLIT % 32 == 0 && THREADS % SPLIT == 0, "split of whole warps");
+constexpr int DMAX = 256;     // largest head dim
+static_assert(SPLIT % 32 == 0 && 128 % SPLIT == 0, "split of whole warps");
 constexpr float NEG = -1.0e30f;
 
 using bf16 = __nv_bfloat16;
@@ -94,33 +95,36 @@ __device__ __forceinline__ void copy_chunk(T* dst, const T* src, int n, bool vec
     }
 }
 
-template <typename T>
+// DM: the head dims the block is built for, one thread each
+template <typename T, int DM>
 __host__ __device__ constexpr int kv_pitch() {
-    return DMAX + 16 / static_cast<int>(sizeof(T));
+    return DM + 16 / static_cast<int>(sizeof(T));
 }
 
-template <typename T>
+template <typename T, int DM>
 __host__ __device__ constexpr int split_smem() {
-    return 2 * SPLIT * kv_pitch<T>() * static_cast<int>(sizeof(T))
-           + (RMAX * DMAX + RMAX * SPLIT) * static_cast<int>(sizeof(float));
+    return 2 * SPLIT * kv_pitch<T, DM>() * static_cast<int>(sizeof(T))
+           + (RMAX * DM + RMAX * SPLIT) * static_cast<int>(sizeof(float));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int DM>
+__global__ void __launch_bounds__(DM)
 flash_decode_split_kernel(float* part, const T* __restrict__ q,
                           const T* __restrict__ k, const T* __restrict__ v,
                           int lq, int lk_valid, int g, int d, int causal,
-                          float scale, int hkv, int nsplit, int vec,
+                          int window, float scale, int hkv, int nsplit, int vec,
                           long long sq_b, long long sq_l, long long sq_h,
                           long long sk_b, long long sk_l, long long sk_h,
                           long long sv_b, long long sv_l, long long sv_h) {
-    constexpr int E = 16 / sizeof(T);  // values per 16-byte chunk
-    constexpr int KP = kv_pitch<T>();  // padded pitch of the K and V rows
+    constexpr int THREADS = DM;
+    constexpr int RG = THREADS / SPLIT;    // row groups of the score pass
+    constexpr int E = 16 / sizeof(T);      // values per 16-byte chunk
+    constexpr int KP = kv_pitch<T, DM>();  // padded pitch of the K and V rows
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* ks = reinterpret_cast<T*>(smem_raw);               // [SPLIT][KP]
     T* vs = ks + SPLIT * KP;                              // [SPLIT][KP]
-    float* qs = reinterpret_cast<float*>(vs + SPLIT * KP);  // [RMAX][DMAX]
-    float* ps = qs + RMAX * DMAX;                         // [RMAX][SPLIT]
+    float* qs = reinterpret_cast<float*>(vs + SPLIT * KP);  // [RMAX][DM]
+    float* ps = qs + RMAX * DM;                           // [RMAX][SPLIT]
 
     const int tid = threadIdx.x;
     const int bh = blockIdx.x, s = blockIdx.y;
@@ -130,7 +134,9 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
     int kend = lk_valid;
     if (causal) kend = min(kend, (nrows - 1) / g + offset + 1);
     const int j0 = s * SPLIT;
-    const int nkeys = min(SPLIT, kend - j0);
+    // the window's band of row 0 (the earliest query) starts at kstart
+    const int kstart = window > 0 ? offset - window + 1 : 0;
+    const int nkeys = j0 + SPLIT <= kstart ? 0 : min(SPLIT, kend - j0);
 
     // scratch: acc [BH][nsplit][rows][d], then m and l [BH][nsplit][rows]
     const long long parts = static_cast<long long>(gridDim.x) * nsplit;
@@ -150,8 +156,8 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
     const T* kb = k + b * sk_b + hk * sk_h + static_cast<long long>(j0) * sk_l;
     const T* vb = v + b * sv_b + hk * sv_h + static_cast<long long>(j0) * sv_l;
     {
-        // thread (row slot, chunk): CPR chunks cover DMAX, RPP rows a pass
-        constexpr int CPR = DMAX / E, RPP = THREADS / CPR;
+        // thread (row slot, chunk): CPR chunks cover DM, RPP rows a pass
+        constexpr int CPR = DM / E, RPP = THREADS / CPR;
         const int c = tid % CPR;
         const int n = min(E, d - c * E);
         if (n > 0) {
@@ -162,10 +168,10 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
         }
     }
     asm volatile("cp.async.commit_group;\n" ::: "memory");
-    // Q rows as float, zeros past d (THREADS == DMAX: one value a thread)
+    // Q rows as float, zeros past d (THREADS == DM: one value a thread)
     for (int r = 0; r < nrows; ++r) {
         const int qi = r / g, h = hk * g + r % g;
-        qs[r * DMAX + tid] =
+        qs[r * DM + tid] =
             tid < d ? to_f(q[b * sq_b + qi * sq_l + h * sq_h + tid]) : 0.0f;
     }
     asm volatile("cp.async.wait_group 0;\n" ::: "memory");
@@ -185,7 +191,7 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
                 for (int i = 0; i < RMAX / RG; ++i) {
                     const int r = rg + RG * i;
                     if (r < nrows) {
-                        const float* qr = qs + r * DMAX + c * E;
+                        const float* qr = qs + r * DM + c * E;
 #pragma unroll
                         for (int u = 0; u < E; ++u) dot[i] = fmaf(qr[u], kv[u], dot[i]);
                     }
@@ -198,7 +204,8 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
             const int r = rg + RG * i;
             if (r < nrows) {
                 const bool ok = j < nkeys && kp < lk_valid
-                                && (!causal || kp <= r / g + offset);
+                                && (!causal || kp <= r / g + offset)
+                                && (window <= 0 || kp > r / g + offset - window);
                 ps[r * SPLIT + j] = ok ? dot[i] * scale : NEG;
             }
         }
@@ -250,8 +257,8 @@ flash_decode_split_kernel(float* part, const T* __restrict__ q,
 
 // one block per (batch x KV head, row), one thread per dim; the m and l of
 // a split are the same address for every thread (one broadcast load)
-template <typename T>
-__global__ void __launch_bounds__(THREADS)
+template <typename T, int DM>
+__global__ void __launch_bounds__(DM)
 flash_decode_combine_kernel(T* o, const float* __restrict__ part, int lq,
                             int g, int d, int hkv, int nsplit,
                             long long so_b, long long so_l, long long so_h) {
@@ -286,13 +293,14 @@ flash_decode_combine_kernel(T* o, const float* __restrict__ part, int lq,
     from_f(o + b * so_b + qi * so_l + h * so_h + dd, den > 0.0f ? num / den : 0.0f);
 }
 
-template <typename T>
+template <typename T, int DM>
 int launch(void* o, const void* q, const void* k, const void* v, void* part,
            int batch, int lq, int lk, int lk_valid, int g, int hkv, int d,
-           int causal, float scale, const long long* st, cudaStream_t stream) {
-    constexpr int smem = split_smem<T>();
+           int causal, int window, float scale, const long long* st,
+           cudaStream_t stream) {
+    constexpr int smem = split_smem<T, DM>();
     cudaError_t err = cudaFuncSetAttribute(
-        flash_decode_split_kernel<T>,
+        flash_decode_split_kernel<T, DM>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     const int nsplit = lk > 0 ? (lk + SPLIT - 1) / SPLIT : 1;
@@ -302,15 +310,15 @@ int launch(void* o, const void* q, const void* k, const void* v, void* part,
               && (reinterpret_cast<uintptr_t>(v) & 15) == 0;
     for (int i = 3; i < 9; ++i) vec = vec && st[i] % E == 0;
     dim3 grid(batch * hkv, nsplit);
-    flash_decode_split_kernel<T><<<grid, THREADS, smem, stream>>>(
+    flash_decode_split_kernel<T, DM><<<grid, DM, smem, stream>>>(
         static_cast<float*>(part), static_cast<const T*>(q),
         static_cast<const T*>(k), static_cast<const T*>(v), lq, lk_valid, g, d,
-        causal, scale, hkv, nsplit, vec, st[0], st[1], st[2], st[3], st[4],
-        st[5], st[6], st[7], st[8]);
+        causal, window, scale, hkv, nsplit, vec, st[0], st[1], st[2], st[3],
+        st[4], st[5], st[6], st[7], st[8]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    flash_decode_combine_kernel<T><<<dim3(batch * hkv, lq * g), THREADS, 0,
-                                     stream>>>(
+    flash_decode_combine_kernel<T, DM><<<dim3(batch * hkv, lq * g), DM, 0,
+                                         stream>>>(
         static_cast<T*>(o), static_cast<const float*>(part), lq, g, d, hkv,
         nsplit, st[9], st[10], st[11]);
     return static_cast<int>(cudaGetLastError());
@@ -318,21 +326,22 @@ int launch(void* o, const void* q, const void* k, const void* v, void* part,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16.  Needs Lq * (Hq / Hkv) <= 16 rows.  `part`
+// dtype: 0 float32, 1 bfloat16; window 0 means none.  Needs Lq * (Hq / Hkv)
+// <= 16 rows and a head dim <= 256.  `part`
 // is float32 scratch of B * Hkv * nsplit * rows * (d + 2) values, nsplit =
 // ceil(Lk / 64) (1 when Lk = 0).  Strides are in elements: (batch, row, head)
 // for q, k, v and o in that order; the head-dim axis is contiguous.
 extern "C" int flash_decode(void* o, const void* q, const void* k,
                             const void* v, void* part, int dtype, int batch,
                             int lq, int lk, int lk_valid, int hq, int hkv,
-                            int d, int causal, float scale,
+                            int d, int causal, int window, float scale,
                             long long sq_b, long long sq_l, long long sq_h,
                             long long sk_b, long long sk_l, long long sk_h,
                             long long sv_b, long long sv_l, long long sv_h,
                             long long so_b, long long so_l, long long so_h,
                             void* stream) {
     if (d <= 0 || d > DMAX || hkv <= 0 || hq % hkv != 0 || lk < 0
-        || (lk + SPLIT - 1) / SPLIT > 65535)
+        || window < 0 || (lk + SPLIT - 1) / SPLIT > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch <= 0 || lq <= 0) return static_cast<int>(cudaGetLastError());
     const int g = hq / hkv;
@@ -340,11 +349,17 @@ extern "C" int flash_decode(void* o, const void* q, const void* k,
     const long long st[12] = {sq_b, sq_l, sq_h, sk_b, sk_l, sk_h,
                               sv_b, sv_l, sv_h, so_b, so_l, so_h};
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+    if (d > 128) {
+        if (dtype == 0)
+            return launch<float, DMAX>(o, q, k, v, part, batch, lq, lk, lk_valid,
+                                       g, hkv, d, causal, window, scale, st, s);
+        return launch<bf16, DMAX>(o, q, k, v, part, batch, lq, lk, lk_valid, g,
+                                  hkv, d, causal, window, scale, st, s);
+    }
     if (dtype == 0)
-        return launch<float>(o, q, k, v, part, batch, lq, lk, lk_valid, g, hkv,
-                             d, causal, scale, st, s);
-    if (dtype == 1)
-        return launch<bf16>(o, q, k, v, part, batch, lq, lk, lk_valid, g, hkv,
-                            d, causal, scale, st, s);
-    return static_cast<int>(cudaErrorInvalidValue);
+        return launch<float, 128>(o, q, k, v, part, batch, lq, lk, lk_valid, g,
+                                  hkv, d, causal, window, scale, st, s);
+    return launch<bf16, 128>(o, q, k, v, part, batch, lq, lk, lk_valid, g, hkv,
+                             d, causal, window, scale, st, s);
 }

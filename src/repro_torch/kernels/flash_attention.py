@@ -3,12 +3,20 @@ and the wrapper of the hand-written CUDA kernel K4.
 
     out[b, i, h] = softmax_j(scale * q[b, i, h] . k[b, j, h // g]) v[b, j, h // g]
 
-over the keys ``j < lk_valid`` that query ``i`` may see.  With ``causal``
-the diagonal is aligned to the end of the valid keys, as in the
-reference's TPU kernel (``repro/kernels/flash_attention.py:45-52``): key
-``j`` is seen by query ``i`` iff ``j < lk_valid`` and
-``j <= i + (lk_valid - Lq)``.  A query that sees no key gives 0.  The
-softmax runs in float32 and the output is cast to ``q``'s type.
+over the keys ``j < lk_valid`` that query ``i`` may see.  Query ``i``
+sits at key position ``i + (lk_valid - Lq)``: with ``causal`` the diagonal
+is aligned to the end of the valid keys, as in the reference's TPU kernel
+(``repro/kernels/flash_attention.py:45-52``), and a ``window > 0`` keeps
+only the last ``window`` positions up to the query's own (the reference's
+local attention, ``repro/models/layers.py:206``).  Key ``j`` is seen by
+query ``i`` iff
+
+    j < lk_valid,
+    j <= i + (lk_valid - Lq)            (causal),
+    j >  i + (lk_valid - Lq) - window   (window > 0).
+
+A query that sees no key gives 0.  The softmax runs in float32 and the
+output is cast to ``q``'s type.
 
 K4 replaces the TPU kernel ``_flash_kernel`` (via ``flash_attention_pallas``);
 in the model it takes the place of the reference's blockwise jnp
@@ -27,7 +35,11 @@ routes, picked by ``flash_route`` from the dtype and the number of rows
   on the CUDA cores.
 
 Prefill is bound by operations and decode by bytes; see the notes in the
-sources.
+sources.  With a window, routes "mma" and "f32" start each block's key
+loop at the first key tile its band reaches, so a banded prefill costs
+O(L * (window + tile)), as the reference's ``_attention_banded`` does;
+route "decode" skips the splits wholly left of the band.  Head dims up to
+``D_MAX`` = 256 run on every route.
 
 ``flash_attention`` picks by device: a route's kernel for CUDA tensors (it
 masks its ragged edges itself, so nothing is padded, whatever ``Lq`` or
@@ -47,7 +59,7 @@ __all__ = ["flash_attention_plain", "flash_attention", "flash_route",
            "flash_attention_split_plain", "D_MAX", "DECODE_ROWS",
            "DECODE_SPLIT", "NEG"]
 
-D_MAX = 128        # largest head dim K4 takes
+D_MAX = 256        # largest head dim K4 takes
 DECODE_ROWS = 16   # rows per (batch, KV head) up to which route "decode" runs
 DECODE_SPLIT = 64  # keys per split of route "decode" (SPLIT in flash_decode.cu)
 NEG = -1.0e30      # the kernels' masked score, and m of a split that saw no key
@@ -57,23 +69,35 @@ def _scale(d: int, scale: float | None) -> float:
     return float(scale) if scale is not None else 1.0 / math.sqrt(d)
 
 
+def _mask(lq: int, kpos: torch.Tensor, valid: int, causal: bool,
+          window: int) -> torch.Tensor:
+    """[Lq, ...kpos] bool: key position ``kpos`` seen by query ``i`` (the
+    module docstring's three conditions)."""
+    qpos = torch.arange(lq, device=kpos.device) + (valid - lq)
+    qpos = qpos.reshape(lq, *(1,) * kpos.dim())
+    mask = (kpos < valid).expand(lq, *kpos.shape)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (kpos > qpos - window)
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True, scale: float | None = None,
-                          lk_valid: int | None = None) -> torch.Tensor:
+                          lk_valid: int | None = None,
+                          window: int = 0) -> torch.Tensor:
     """Plain torch version of K4 (the reference's ``flash_attention_ref``
-    with the kernel's ``lk_valid`` mask): q [B, Lq, Hq, D], k and v
-    [B, Lk, Hkv, D] with ``Hq % Hkv == 0``."""
+    with the kernel's ``lk_valid`` mask and the model's local ``window``):
+    q [B, Lq, Hq, D], k and v [B, Lk, Hkv, D] with ``Hq % Hkv == 0``."""
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     valid = lk if lk_valid is None else lk_valid
     qf = q.float().reshape(b, lq, hkv, g, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()) * _scale(d, scale)
-    kpos = torch.arange(lk, device=q.device)
-    mask = (kpos < valid)[None, :]
-    if causal:
-        qpos = torch.arange(lq, device=q.device) + (valid - lq)
-        mask = mask & (kpos[None, :] <= qpos[:, None])
+    mask = _mask(lq, torch.arange(lk, device=q.device), valid, causal,
+                 window)
     s = s.masked_fill(~mask, -math.inf)
     m = s.amax(dim=-1, keepdim=True)
     m = torch.where(torch.isfinite(m), m, 0.0)   # a row that sees no key
@@ -99,7 +123,7 @@ def _nsplit(lk: int) -> int:
 def flash_split_partials_plain(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor, *, causal: bool = True,
                                scale: float | None = None,
-                               lk_valid: int | None = None
+                               lk_valid: int | None = None, window: int = 0
                                ) -> tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
     """Route "decode"'s split kernel in torch: per split of ``DECODE_SPLIT``
@@ -122,11 +146,10 @@ def flash_split_partials_plain(q: torch.Tensor, k: torch.Tensor,
 
     kf, vf = split(k), split(v)
     s = torch.einsum("bhrd,bhsjd->bhsrj", qf, kf) * _scale(d, scale)
-    kpos = torch.arange(ns * DECODE_SPLIT, device=q.device).reshape(ns, 1, -1)
-    mask = kpos < valid
-    if causal:
-        qpos = torch.arange(rows, device=q.device) // g + (valid - lq)
-        mask = mask & (kpos <= qpos[None, :, None])
+    kpos = torch.arange(ns * DECODE_SPLIT, device=q.device).reshape(ns, -1)
+    # [Lq, S, J] per query position, then per row r = i * g + h: [S, R, J]
+    mask = _mask(lq, kpos, valid, causal, window).repeat_interleave(g, 0) \
+        .transpose(0, 1)
     s = torch.where(mask, s, NEG)
     m = s.amax(dim=-1)
     base = torch.where(m == NEG, 0.0, m)
@@ -158,7 +181,8 @@ def flash_split_combine_plain(acc: torch.Tensor, m: torch.Tensor,
 def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
                                 v: torch.Tensor, *, causal: bool = True,
                                 scale: float | None = None,
-                                lk_valid: int | None = None) -> torch.Tensor:
+                                lk_valid: int | None = None,
+                                window: int = 0) -> torch.Tensor:
     """Route "decode"'s split-KV algebra in torch (used by the tests): the
     partials of ``flash_split_partials_plain`` merged by
     ``flash_split_combine_plain``, laid out as ``flash_attention_plain``'s
@@ -166,7 +190,8 @@ def flash_attention_split_plain(q: torch.Tensor, k: torch.Tensor,
     b, lq, hq, d = q.shape
     hkv = k.shape[2]
     out = flash_split_combine_plain(*flash_split_partials_plain(
-        q, k, v, causal=causal, scale=scale, lk_valid=lk_valid))
+        q, k, v, causal=causal, scale=scale, lk_valid=lk_valid,
+        window=window))
     return out.reshape(b, hkv, lq, hq // hkv, d).permute(0, 2, 1, 3, 4) \
         .reshape(b, lq, hq, d).to(q.dtype)
 
@@ -187,7 +212,7 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    lk_valid: int | None = None,
+                    lk_valid: int | None = None, window: int = 0,
                     site: str | None = None) -> torch.Tensor:
     """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], float32
     or bfloat16; the inputs may be strided views with a contiguous last
@@ -210,9 +235,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not 0 <= valid <= lk:
         raise ValueError(f"flash_attention: lk_valid {valid} outside "
                          f"[0, {lk}]")
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0")
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
-                                     lk_valid=valid)
+                                     lk_valid=valid, window=window)
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash_attention: float32 or bfloat16 required, "
                          f"got {q.dtype}")
@@ -233,13 +261,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            dtype=torch.float32, device=q.device)
         code = lib.flash_decode(
             *ptrs, part.data_ptr(), 0 if q.dtype == torch.float32 else 1, b,
-            lq, lk, valid, hq, hkv, d, int(causal), sc, *strides, stream)
+            lq, lk, valid, hq, hkv, d, int(causal), window, sc, *strides,
+            stream)
     elif route == "mma":
         code = lib.flash_attention_mma(*ptrs, b, lq, valid, hq, hkv, d,
-                                       int(causal), sc, *strides, stream)
+                                       int(causal), window, sc, *strides,
+                                       stream)
     else:
         code = lib.flash_attention(*ptrs, 0, b, lq, valid, hq, hkv, d,
-                                   int(causal), sc, *strides, stream)
+                                   int(causal), window, sc, *strides, stream)
     _build.LAUNCHES["flash_attention"] += 1
     _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] += 1
     if site is not None:

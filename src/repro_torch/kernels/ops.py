@@ -86,13 +86,15 @@ def minplus_matmul(a: torch.Tensor, b: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: float | None = None,
-                    lk_valid: int | None = None,
+                    lk_valid: int | None = None, window: int = 0,
                     site: str | None = None) -> torch.Tensor:
     """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], causal
-    diagonal aligned to the end of the ``lk_valid`` valid keys (K4 on the
-    card; see ``repro_torch.kernels.flash_attention``)."""
+    diagonal aligned to the end of the ``lk_valid`` valid keys, local over
+    the last ``window`` positions when ``window > 0`` (K4 on the card; see
+    ``repro_torch.kernels.flash_attention``)."""
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
-                                  lk_valid=lk_valid, site=site)
+                                  lk_valid=lk_valid, window=window,
+                                  site=site)
 
 
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -2,9 +2,14 @@
 ``repro.launch.serve``).
 
 Prefill runs the prompt through the model in one pass (K4 in every
-attention layer of the dense family, K5 in every time-mixing layer of the
-ssm family) and builds the cache; decode runs one step per token over the
-preallocated KV cache (K4 with one query row) or the recurrent state.
+attention layer of the dense, moe, vlm and audio families and in the
+hybrid's local-window layers, K5 in every time-mixing layer of the ssm
+family) and builds the cache; decode runs one step per token over the
+preallocated KV cache, the hybrid's ring of its window (K4 with one query
+row) or the recurrent state.  ``generate`` takes token prompts, as the
+reference's does; the vlm's patch prefix is served through
+``models.model.make_prefill_step``/``make_decode_step`` with
+``{"tokens", "patch_embeds", "positions"}``.
 
 Example (one card, full width and depth):
 

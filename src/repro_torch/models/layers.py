@@ -2,9 +2,8 @@
 
 The reference's ``shard`` hooks are dropped: this slice runs on one device.
 Attention goes through ``repro_torch.kernels.ops.flash_attention``: K4 on
-the card, its plain version on the CPU.  Local-window attention
-(``window > 0``, only the hybrid family) and the multimodal ``m_rope`` come
-with the hybrid and vlm slices (ROADMAP A12).
+the card, its plain version on the CPU, with the local window of the hybrid
+family (``window > 0``) inside the kernel.
 """
 from __future__ import annotations
 
@@ -13,7 +12,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-__all__ = ["rms_norm", "dense", "swiglu", "rope", "apply_rope", "attention"]
+__all__ = ["rms_norm", "dense", "swiglu", "rope", "m_rope", "apply_rope",
+           "attention"]
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,
@@ -49,6 +49,27 @@ def rope(positions: torch.Tensor, head_dim: int,
     return torch.sin(ang), torch.cos(ang)
 
 
+def m_rope(positions: torch.Tensor, head_dim: int, sections: tuple[int, ...],
+           theta: float = 1e4) -> tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL multimodal RoPE.  positions [B, 3, L] (t, h, w component
+    ids); ``sections`` splits the head_dim // 2 frequency slots over the
+    three components in order (e.g. (16, 24, 24) for head_dim 128).
+    Returns (sin, cos) of shape [B, L, head_dim // 2]."""
+    half = head_dim // 2
+    if positions.dim() != 3 or positions.shape[1] != len(sections) \
+            or sum(sections) != half:
+        raise ValueError(f"m_rope: positions {tuple(positions.shape)}, "
+                         f"sections {sections}, head_dim {head_dim}")
+    freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=positions.device) / head_dim))
+    comp = torch.repeat_interleave(
+        torch.arange(len(sections), device=positions.device),
+        torch.tensor(sections, device=positions.device))       # [half]
+    pos = positions.float()[:, comp]                            # [B, half, L]
+    ang = pos.transpose(1, 2) * freq                            # [B, L, half]
+    return torch.sin(ang), torch.cos(ang)
+
+
 def apply_rope(x: torch.Tensor, sin: torch.Tensor,
                cos: torch.Tensor) -> torch.Tensor:
     """x: [B, L, H, D]; sin/cos: [L, D/2] or [B, L, D/2] (broadcast over H).
@@ -69,11 +90,9 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal diagonal is aligned to the end of the valid keys, so query ``i``
     sits at position ``kv_len - Lq + i``: the reference's ``q_offset`` is 0
     for a full sequence and ``pos`` for a decode step over the cache, both
-    that alignment.  ``site`` tags the kernel's launch count."""
-    if window > 0:
-        raise NotImplementedError(
-            "local-window attention (window > 0) is used only by the hybrid "
-            "family and lands with its slice (ROADMAP A12: rglru with the "
-            "windowed attention)")
+    that alignment.  ``window > 0`` keeps the last ``window`` key positions
+    up to each query's own, as the reference's local attention does (both
+    of its branches, the masked blockwise one and ``_attention_banded``).
+    ``site`` tags the kernel's launch count."""
     return ops.flash_attention(q, k, v, causal=causal, lk_valid=kv_len,
-                               site=site)
+                               window=window, site=site)

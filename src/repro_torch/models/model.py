@@ -1,13 +1,13 @@
 """Architecture registry and serve step factories (the port of
 ``repro.models.model`` for the serving path).
 
-Families dispatch to their module (``transformer`` for dense, ``rwkv6`` for
-the ssm family), both exposing init_params / forward / prefill /
-decode_step / init_cache.  ``Model`` binds a config and a device; its
-functions run eagerly (no jit).  ``load_reference_params`` carries the
-reference's own parameter pytree across, so that both packages compute the
-same thing.  The loss and the train step come with the training slice
-(ROADMAP A12).
+Families dispatch to their module (``transformer`` for dense, moe, vlm and
+audio, ``rglru`` for the hybrid, ``rwkv6`` for the ssm family), all
+exposing init_params / forward / prefill / decode_step / init_cache.
+``Model`` binds a config and a device; its functions run eagerly (no jit).
+``load_reference_params`` carries the reference's own parameter pytree
+across, so that both packages compute the same thing.  The loss and the
+train step come with the training slice (ROADMAP A8.2).
 """
 from __future__ import annotations
 
@@ -18,19 +18,14 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6, transformer as tfm
+from repro_torch.models import rglru, rwkv6, transformer as tfm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Model", "get_model", "make_prefill_step", "make_decode_step",
            "load_reference_params"]
 
-# families of later slices, and the ROADMAP item that brings each
-_LATER = {
-    "moe": "ROADMAP A12: the moe family (MoE feed-forward)",
-    "hybrid": "ROADMAP A12: rglru with the windowed attention",
-    "vlm": "ROADMAP A12: the vlm family (patch frontend, M-RoPE)",
-    "audio": "ROADMAP A12: the audio family (frame frontend)",
-}
+_MODULES = {"dense": tfm, "moe": tfm, "vlm": tfm, "audio": tfm,
+            "hybrid": rglru, "ssm": rwkv6}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,16 +40,9 @@ class Model:
 
 
 def _module(cfg: ModelConfig):
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({_LATER[cfg.family]})")
-    if cfg.family == "ssm":
-        return rwkv6
-    if cfg.family == "dense":
-        tfm.check_supported(cfg)
-        return tfm
-    raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family not in _MODULES:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    return _MODULES[cfg.family]
 
 
 def get_model(cfg: ModelConfig, device: str | torch.device = "cuda") -> Model:
@@ -99,9 +87,11 @@ def make_decode_step(cfg: ModelConfig, device: str | torch.device = "cuda"):
 def load_reference_params(cfg: ModelConfig, tree: dict,
                           device: str | torch.device = "cuda") -> dict:
     """The port's parameters from the reference's parameter pytree, given as
-    nested dicts of numpy arrays (every per-layer tensor stacked on a
-    leading L dim, as the reference's ``init_params`` makes it), in
-    ``cfg.param_dtype`` on ``device``."""
+    nested dicts (and, for the hybrid, a list) of numpy arrays, as the
+    reference's ``init_params`` makes it: ``blocks`` a dict of per-layer
+    tensors stacked on a leading L dim, or the hybrid's list of per-layer
+    dicts of two kinds (``cfg.layer_kinds``); the vlm's ``w_patch`` beside
+    them.  In ``cfg.param_dtype`` on ``device``."""
     _module(cfg)
     dev = resolve_device(device)
     pdt = tfm._pdt(cfg)
@@ -109,13 +99,32 @@ def load_reference_params(cfg: ModelConfig, tree: dict,
     def conv(x):
         if isinstance(x, dict):
             return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
         return torch.tensor(np.asarray(x), dtype=pdt, device=dev)
 
     params = conv(tree)
-    for key in ("emb", "head", "final_norm", "blocks"):
+    need = ["emb", "head", "final_norm", "blocks"]
+    if cfg.frontend == "patch":
+        need.append("w_patch")
+    for key in need:
         if key not in params:
             raise ValueError(f"load_reference_params: no {key!r} in the tree")
-    for name, w in params["blocks"].items():
+    blocks = params["blocks"]
+    if isinstance(blocks, list) != (cfg.family == "hybrid"):
+        raise ValueError(f"load_reference_params: {cfg.name} takes blocks as "
+                         + ("a list of per-layer dicts" if cfg.family ==
+                            "hybrid" else "a dict of stacked tensors"))
+    if isinstance(blocks, list):
+        if len(blocks) != cfg.num_layers:
+            raise ValueError(f"load_reference_params: {len(blocks)} blocks, "
+                             f"{cfg.name} has {cfg.num_layers} layers")
+        for i, (kind, lw) in enumerate(zip(cfg.layer_kinds, blocks)):
+            if ("w_a" in lw) != (kind == "rec"):
+                raise ValueError(f"load_reference_params: block {i} is not "
+                                 f"a {kind!r} layer")
+        return params
+    for name, w in blocks.items():
         if w.shape[0] != cfg.num_layers:
             raise ValueError(f"load_reference_params: blocks/{name} has "
                              f"{w.shape[0]} layers, {cfg.name} has "

@@ -1,13 +1,16 @@
-"""Dense decoder-only transformer (the port of ``repro.models.transformer``
-for the dense family).
+"""Dense / MoE / VLM / audio decoder-only transformer (the port of
+``repro.models.transformer``).
 
 The parameters keep the reference's layout: one dict whose per-layer
 tensors are stacked on a leading L dim, attention weights flat
 ([D, H*Dh]).  The reference's ``scan`` over layers becomes a Python loop
 over that dim, and its ``shard`` hooks are dropped (one device).  Attention
 runs K4 (``repro_torch.kernels.ops.flash_attention``) at prefill and at
-every decode step; the MoE feed-forward and the patch/frame frontends come
-with their slices (ROADMAP A12).
+every decode step.  The moe family's feed-forward is ``models.moe``; the
+vlm family fuses ``batch["patch_embeds"]`` as a prefix through ``w_patch``
+and rotates by M-RoPE when ``batch["positions"]`` ([B, 3, L]) is given.  A
+decode step rotates at the cache position with standard RoPE, as the
+reference does (``repro/models/transformer.py:272``; ROADMAP R6).
 """
 from __future__ import annotations
 
@@ -16,7 +19,7 @@ import math
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, moe as moe_lib
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache"]
@@ -28,18 +31,6 @@ def _dt(cfg: ModelConfig) -> torch.dtype:
 
 def _pdt(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.param_dtype)
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what this slice of the port does not run yet."""
-    if cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE feed-forward lands with the moe family's "
-            "slice (ROADMAP A12)")
-    if cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.frontend!r} frontend lands with the "
-            "vlm/audio slice (ROADMAP A12)")
 
 
 def generator_for(seed_or_gen: int | torch.Generator,
@@ -71,7 +62,6 @@ def init_params(cfg: ModelConfig, generator: int | torch.Generator,
     ``cfg.param_dtype``, on ``device``.  The draws differ from the
     reference's ``jax.random``; ``model.load_reference_params`` carries the
     reference's own parameters across."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = generator_for(generator, dev)
     d, hd = cfg.d_model, cfg.head_dim_
@@ -96,15 +86,22 @@ def init_params(cfg: ModelConfig, generator: int | torch.Generator,
         for name, width in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             blocks[name] = torch.zeros((nl, width * hd), dtype=pdt,
                                        device=dev)
-    blocks["wg"] = mat(nl, d, f, fan_in=d)
-    blocks["wu"] = mat(nl, d, f, fan_in=d)
-    blocks["wd"] = mat(nl, f, d, fan_in=f)
-    return {
+    if cfg.num_experts:
+        blocks.update(moe_lib.init_moe(
+            cfg, nl, lambda shape, fan_in: mat(*shape, fan_in=fan_in)))
+    else:
+        blocks["wg"] = mat(nl, d, f, fan_in=d)
+        blocks["wu"] = mat(nl, d, f, fan_in=d)
+        blocks["wd"] = mat(nl, f, d, fan_in=f)
+    params = {
         "emb": mat(vp, d, fan_in=1.0).mul_(0.02),
         "head": mat(d, vp, fan_in=d),
         "final_norm": norm(d),
         "blocks": blocks,
     }
+    if cfg.frontend == "patch":
+        params["w_patch"] = mat(cfg.frontend_dim, d, fan_in=cfg.frontend_dim)
+    return params
 
 
 def layer(params: dict, i: int) -> dict:
@@ -156,9 +153,15 @@ def _attention_decode(q, k, v, *, kv_len, window=0):
                             window=window, site="decode")
 
 
-def _ffn_block(cfg: ModelConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
+def _ffn_block(cfg: ModelConfig, x: torch.Tensor,
+               lw: dict) -> tuple[torch.Tensor, torch.Tensor]:
+    """(out, aux): the MoE feed-forward and its load-balancing loss, or
+    SwiGLU and 0."""
     h = layers.rms_norm(x, lw["ln2"], cfg.norm_eps)
-    return layers.swiglu(h, lw["wg"], lw["wu"], lw["wd"])
+    if cfg.num_experts:
+        return moe_lib.apply_moe(cfg, h, lw["router"], lw["we_gate"],
+                                 lw["we_up"], lw["we_down"])
+    return layers.swiglu(h, lw["wg"], lw["wu"], lw["wd"]), _zero(x)
 
 
 # --------------------------------------------------------------------------
@@ -168,8 +171,12 @@ def _ffn_block(cfg: ModelConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
 def _embed(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     # gather the rows, then cast: the same values as casting the table
     # first, without a compute-type copy of the whole table
-    tokens = batch["tokens"].to(params["emb"].device, torch.long)
-    return params["emb"][tokens].to(_dt(cfg))
+    dev = params["emb"].device
+    x = params["emb"][batch["tokens"].to(dev, torch.long)].to(_dt(cfg))
+    if cfg.frontend == "patch" and "patch_embeds" in batch:
+        patches = batch["patch_embeds"].to(dev, _dt(cfg))
+        x = torch.cat([layers.dense(patches, params["w_patch"]), x], dim=1)
+    return x
 
 
 def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -177,8 +184,14 @@ def _unembed(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
     return x @ params["head"].to(x.dtype)
 
 
-def _rope_for(cfg: ModelConfig, seq_len: int, device: torch.device,
-              offset: int = 0):
+def _rope_for(cfg: ModelConfig, batch: dict, seq_len: int,
+              device: torch.device, offset: int = 0):
+    # M-RoPE when per-component positions are given; a decode step passes
+    # tokens only and rotates at the cache position (reduces to RoPE when
+    # the three components are equal)
+    if cfg.mrope_sections is not None and "positions" in batch:
+        return layers.m_rope(batch["positions"].to(device), cfg.head_dim_,
+                             cfg.mrope_sections, cfg.rope_theta)
     pos = offset + torch.arange(seq_len, device=device)
     return layers.rope(pos, cfg.head_dim_, cfg.rope_theta)
 
@@ -197,21 +210,24 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     With unembed=False, returns the final-norm hidden states instead of
     logits."""
     x = _embed(cfg, params, batch)
-    sin, cos = _rope_for(cfg, x.shape[1], x.device)
+    sin, cos = _rope_for(cfg, batch, x.shape[1], x.device)
     ks, vs = [], []
+    aux = _zero(x)
     for i in range(cfg.num_layers):
         lw = layer(params, i)
         a, (k, v) = _attn_block(cfg, x, lw, sin, cos)
         x = x + a
-        x = x + _ffn_block(cfg, x, lw)
+        f, aux_i = _ffn_block(cfg, x, lw)
+        x = x + f
+        aux = aux + aux_i
         if collect_kv:
             ks.append(k)
             vs.append(v)
     kvs = (torch.stack(ks), torch.stack(vs)) if collect_kv else None
     if not unembed:
         return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), \
-            _zero(x), kvs
-    return _unembed(cfg, params, x), _zero(x), kvs
+            aux, kvs
+    return _unembed(cfg, params, x), aux, kvs
 
 
 # --------------------------------------------------------------------------
@@ -234,14 +250,14 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
     x = _embed(cfg, params, batch)
     b, s, _ = x.shape
     cache = init_cache(cfg, b, max_len, x.device)
-    sin, cos = _rope_for(cfg, s, x.device)
+    sin, cos = _rope_for(cfg, batch, s, x.device)
     for i in range(cfg.num_layers):
         lw = layer(params, i)
         a, (k, v) = _attn_block(cfg, x, lw, sin, cos)
         cache["k"][i, :, :s] = k      # in place into the preallocated cache
         cache["v"][i, :, :s] = v
         x = x + a
-        x = x + _ffn_block(cfg, x, lw)
+        x = x + _ffn_block(cfg, x, lw)[0]
     cache["pos"] = s
     # unembed the last position only: the same values as the reference's
     # logits[:, -1] (norm and head act per position) without a
@@ -255,13 +271,14 @@ def decode_step(cfg: ModelConfig, params: dict, cache: dict,
     cache).  The returned cache holds the same k/v buffers, written at
     ``pos`` in place, and ``pos + 1``."""
     pos = int(cache["pos"])
-    x = _embed(cfg, params, {"tokens": tokens})
-    sin, cos = _rope_for(cfg, 1, x.device, offset=pos)
+    batch = {"tokens": tokens}
+    x = _embed(cfg, params, batch)
+    sin, cos = _rope_for(cfg, batch, 1, x.device, offset=pos)
     for i in range(cfg.num_layers):
         lw = layer(params, i)
         a, _ = _attn_block(cfg, x, lw, sin, cos,
                            kv_cache=(cache["k"][i], cache["v"][i]), pos=pos)
         x = x + a
-        x = x + _ffn_block(cfg, x, lw)
+        x = x + _ffn_block(cfg, x, lw)[0]
     logits = _unembed(cfg, params, x)
     return logits[:, -1], {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

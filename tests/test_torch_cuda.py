@@ -551,6 +551,42 @@ def test_cuda_flash_attention_matches_plain(cuda, dtype, b, lq, lk, hq, hkv,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,lk_valid,window", [
+    (2, 300, 300, 10, 1, 256, None, 100),  # D = 256, band not tile-aligned
+    (1, 200, 250, 4, 2, 256, 230, 37),     # Lq < lk_valid < Lk, ragged
+    (1, 130, 130, 2, 1, 64, None, 1),      # window 1: each row sees itself
+    (1, 77, 77, 6, 2, 128, None, 500),     # window >= L: plain causal
+    (1, 100, 100, 1, 1, 256, None, 64),    # g = 1, band of whole tiles
+    (1, 64, 64, 2, 1, 250, None, 20),      # d = 250: rows not 16-aligned
+    (1, 160, 160, 2, 2, 136, 150, 50),     # d = 136, lk_valid < Lk
+    (2, 1, 2048, 10, 1, 256, 2048, 0),     # decode over a full 2048 ring
+    (2, 1, 2048, 10, 1, 256, 700, 0),      # the ring before its wrap
+    (2, 1, 300, 10, 1, 256, 290, 70),      # decode, splits left of the band
+    (1, 3, 200, 4, 1, 256, 150, 33),       # 12 rows: route decode, window
+])
+def test_cuda_flash_attention_window_and_head_dim_256(
+        cuda, dtype, b, lq, lk, hq, hkv, d, lk_valid, window):
+    """K4 with a local window and head dims up to 256 on each route
+    (``mma`` for bf16 prefill, ``f32`` for float32, ``decode`` up to 16
+    rows) against the plain version with the same window."""
+    q = _normal(11, b, lq, hq, d).to(cuda, dtype)
+    k = _normal(12, b, lk, hkv, d).to(cuda, dtype)
+    v = _normal(13, b, lk, hkv, d).to(cuda, dtype)
+    route = p_flash.flash_route(dtype, lq, hq // hkv)
+    key = f"flash_attention/route:{route}"
+    before = _build.SITE_LAUNCHES[key]
+    got = p_flash.flash_attention(q, k, v, causal=True, lk_valid=lk_valid,
+                                  window=window)
+    torch.cuda.synchronize()
+    assert _build.SITE_LAUNCHES[key] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    want = p_flash.flash_attention_plain(q, k, v, causal=True,
+                                         lk_valid=lk_valid, window=window)
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lq", [1, 40])
 def test_cuda_flash_attention_reads_a_cache_slice_in_place(cuda, lq):
     """A layer's [B, max_len, Hkv, D] slice of a stacked cache goes in as
@@ -635,26 +671,35 @@ def test_cuda_wkv_reads_strided_head_views(cuda, t, n, offset):
     torch.testing.assert_close(s, want_s, atol=1e-4, rtol=1e-4)
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    return tree.to(device)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["minitron-4b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["minitron-4b", "rwkv6-7b",
+                                  "granite-moe-3b-a800m", "qwen2-vl-7b",
+                                  "musicgen-medium", "recurrentgemma-2b"])
 def test_cuda_serving_matches_cpu(cuda, arch):
-    """The smoke config served on the card (K4 or K5 on the path) gives
-    the CPU's logits (plain versions) from the same float32 weights."""
+    """The smoke config served on the card (K4 or K5 on the path; the
+    hybrid's 45-token prompt is past its 16-key window) gives the CPU's
+    logits (plain versions) from the same float32 weights."""
     from repro_torch.configs import get_smoke
     from repro_torch.launch import serve
     from repro_torch.models import model
 
     cfg = get_smoke(arch)
     params = model.get_model(cfg, "cpu").init_params(0)
-    on_card = {k: ({n: w.to(cuda) for n, w in v.items()}
-                   if isinstance(v, dict) else v.to(cuda))
-               for k, v in params.items()}
+    on_card = _to(params, cuda)
     prompts = np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 45)).astype(np.int32)
     rec = {}
     _build.reset_launches()
     toks = serve.generate(cfg, on_card, prompts, 4, device=cuda, record=rec)
-    kernel = "flash_attention" if cfg.family == "dense" else "wkv_chunked"
+    kernel = "wkv_chunked" if cfg.family == "ssm" else "flash_attention"
     assert _build.LAUNCHES[kernel] > 0
     # teacher-forced on the CPU with the card's tokens
     cpu_model = model.get_model(cfg, "cpu")

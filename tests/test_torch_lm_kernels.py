@@ -133,8 +133,8 @@ def test_flash_wrapper_checks_and_windowed_attention_raises():
         p_ops.flash_attention(q, k, v, lk_valid=9)
     with pytest.raises(ValueError, match="query heads"):
         p_ops.flash_attention(q[:, :, :3], k, v)
-    with pytest.raises(NotImplementedError, match="hybrid"):
-        p_layers.attention(q, k, v, window=4)
+    with pytest.raises(ValueError, match="window"):
+        p_layers.attention(q, k, v, window=-1)
 
 
 # K4 route "decode": the split-KV algebra (flash-decoding) in torch

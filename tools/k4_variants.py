@@ -3,7 +3,7 @@
 design choice of ``csrc/flash_attention_mma.cu`` and ``csrc/flash_decode.cu``
 is worth.
 
-    python3 tools/k4_variants.py
+    python3 tools/k4_variants.py [--parent DIR]
 
 Each variant is the shipped source with a few constants or lines rewritten;
 all are built with the flags of ``kernels/_build.py`` (one ``nvcc`` each,
@@ -14,11 +14,19 @@ causal and at [8,200,24/8,128]; route "decode" at cache 1016, lk_valid 1001,
 four input sets in turn.  Each row gives the most registers ``ptxas``
 reports for a kernel of the variant, whether any kernel spills, and how many
 outputs fall outside K4's bf16 tolerance against the plain version (the
-shipped sources give 0).  Needs a card;
-prints one JSON line per variant.
+shipped sources give 0).  With ``--parent DIR`` (the ``csrc`` directory of
+an earlier checkout, e.g. from ``git archive``) that checkout's three K4
+sources are built too, through their own C entries (with the ``window``
+argument where the parent's source declares one, without it for sources
+older than the local window), and phase 6's D = 128 rows (route "mma" at
+[8,1000,24/8,128] bf16, "decode" over the 1016 cache, "f32" at
+[8,1000,24/8,128] float32) are checked against the plain version on both
+sides and timed parent, shipped, shipped, parent in the same call.  Needs
+a card; prints one JSON line per row.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import pathlib
@@ -64,40 +72,147 @@ def build(name: str, text: str) -> subprocess.Popen:
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def load(stem: str, proc: subprocess.Popen, entry: str):
+def has_window(source: str) -> bool:
+    """Whether a K4 source's C entries take the local window."""
+    return re.search(r"\bint window\b", source) is not None
+
+
+def signature(entry: str, window: bool) -> list:
+    """An entry's C signature; without ``window`` the same less the
+    ``window`` int that precedes the float scale (sources older than the
+    local window)."""
+    sig = list(_build._SIGNATURES[entry])
+    if window:
+        return sig
+    f = sig.index(ctypes.c_float)
+    return sig[:f - 1] + sig[f:]
+
+
+def load(stem: str, proc: subprocess.Popen, entry: str, window=True):
+    """The variant's C entry, and the most registers and any spill of its
+    kernels built for head dims up to 128 (the timed shapes; the D = 256
+    instantiations are not timed here)."""
     log, _ = proc.communicate()
     if proc.returncode:
         raise SystemExit(f"k4_variants: {stem}.cu does not build:\n{log}")
+    # ptxas reports each kernel as "Compiling entry function '<mangled>'"
+    # then its spills and registers; keep the blocks not of DP/DM = 256
+    blocks = log.split("Compiling entry function")[1:]
+    log = "".join(b for b in blocks if "Li256E" not in b.split("'")[1])
     regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
     lib = ctypes.CDLL(str(OUT / f"{stem}.so"))
     fn = getattr(lib, entry)
-    fn.argtypes = list(_build._SIGNATURES[entry])
+    fn.argtypes = signature(entry, window)
     fn.restype = ctypes.c_int
     spills = any(" 0 bytes spill stores" not in ln
                  for ln in log.splitlines() if "spill stores" in ln)
     return fn, max(regs), spills
 
 
-def outside(got: torch.Tensor, want: torch.Tensor) -> int:
-    atol, rtol = cs.K4_BF16_TOL
+def outside(got: torch.Tensor, want: torch.Tensor,
+            tol=cs.K4_BF16_TOL) -> int:
+    atol, rtol = tol
     g, w = got.double(), want.double()
     return int(((g - w).abs() > atol + rtol * w.abs()).sum())
 
 
+def parent_rows(parent: pathlib.Path, card: str) -> None:
+    """Phase 6's D = 128 rows through the parent's and the shipped C
+    entries, timed parent, shipped, shipped, parent."""
+    entries = {"mma": ("flash_attention_mma.cu", "flash_attention_mma"),
+               "decode": ("flash_decode.cu", "flash_decode"),
+               "f32": ("flash_attention.cu", "flash_attention")}
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs, windowed = {}, {}
+    for route, (src, entry) in entries.items():
+        windowed[("parent", route)] = has_window((parent / src).read_text())
+        windowed[("shipped", route)] = True
+        procs[("parent", route)] = subprocess.Popen(
+            [_build._nvcc(), *_build.ARCH, *_build._FLAGS, "-shared", "-o",
+             str(OUT / f"p_{route}.so"), str(parent / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        procs[("shipped", route)] = build(f"s_{route}",
+                                          (CSRC / src).read_text())
+    fns = {key: load(("p_" if key[0] == "parent" else "s_") + key[1], proc,
+                     entries[key[1]][1], windowed[key])[0]
+           for key, proc in procs.items()}
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, hq, hkv, d = 8, 24, 8, 128
+    stream = _build.stream_ptr(dev)
+    for route, lq, lk, valid, dtype, sets in (
+            ("mma", 1000, 1000, 1000, torch.bfloat16, 1),
+            ("decode", 1, 1016, 1001, torch.bfloat16, 4),
+            ("f32", 1000, 1000, 1000, torch.float32, 1)):
+        inputs = [tuple(torch.randn((b, n, h, d), generator=gen, device=dev,
+                                    dtype=dtype)
+                        for n, h in ((lq, hq), (lk, hkv), (lk, hkv)))
+                  for _ in range(sets)]
+        want = kfa.flash_attention_plain(*inputs[0], lk_valid=valid)
+        calls, outs = {}, {}
+        for side in ("parent", "shipped"):
+            fn = fns[(side, route)]
+            window = (0,) if windowed[(side, route)] else ()
+            calls[side] = []
+            for q, k, v in inputs:
+                out = torch.empty_like(q)
+                st = [s for x in (q, k, v, out) for s in x.stride()[:3]]
+                ptrs = (out.data_ptr(), q.data_ptr(), k.data_ptr(),
+                        v.data_ptr())
+                if route == "decode":
+                    part = torch.empty(b * hkv * -(-lk // 64) * (hq // hkv)
+                                       * (d + 2), device=dev)
+                    args = (*ptrs, part.data_ptr(), 1, b, 1, lk, valid, hq,
+                            hkv, d, 1, *window, d ** -0.5, *st, stream)
+                    outs.setdefault(side, []).append((out, part))
+                elif route == "mma":
+                    args = (*ptrs, b, lq, valid, hq, hkv, d, 1, *window,
+                            d ** -0.5, *st, stream)
+                    outs.setdefault(side, []).append(out)
+                else:
+                    args = (*ptrs, 0, b, lq, valid, hq, hkv, d, 1, *window,
+                            d ** -0.5, *st, stream)
+                    outs.setdefault(side, []).append(out)
+                calls[side].append(lambda fn=fn, args=args: _build.check(
+                    fn(*args), "K4"))
+            calls[side][0]()
+        torch.cuda.synchronize()
+        bad = {}
+        for side, side_outs in outs.items():
+            got = side_outs[0][0] if route == "decode" else side_outs[0]
+            bad[side] = outside(got, want, cs.K4_BF16_TOL if dtype ==
+                                torch.bfloat16 else cs.K4_F32_TOL)
+        times = {}
+        for side in ("parent", "shipped", "shipped", "parent"):
+            times.setdefault(side, []).append(cs.time_ms(calls[side]))
+        print(json.dumps({
+            "route": route, "shape": f"[{b},{lq},{hq}/{hkv},{d}] "
+            f"{'bf16' if dtype == torch.bfloat16 else 'f32'}, keys {valid}",
+            "parent_ms": times["parent"], "shipped_ms": times["shipped"],
+            "parent_has_window": windowed[("parent", route)],
+            "outside_tolerance": bad, "card": card}), flush=True)
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", type=pathlib.Path, default=None,
+                    help="csrc directory of an earlier checkout")
+    opts = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("k4_variants: no CUDA device is available")
+    if opts.parent is not None:
+        parent_rows(opts.parent, cs.card_line())
     mma = (CSRC / "flash_attention_mma.cu").read_text()
     dec = (CSRC / "flash_decode.cu").read_text()
-    lb = "__launch_bounds__(THREADS, 3)"
+    lb = "constexpr int MIN_BLOCKS = 3;"
     mma_variants = {
         "mma shipped (32-key tiles, <=168 registers, 3 blocks/SM)": mma,
-        "mma 2 blocks/SM": edit(mma, (lb, "__launch_bounds__(THREADS, 2)")),
+        "mma 2 blocks/SM": edit(mma, (lb, "constexpr int MIN_BLOCKS = 2;")),
         "mma 4 blocks/SM (<=128 registers)": edit(
-            mma, (lb, "__launch_bounds__(THREADS, 4)")),
+            mma, (lb, "constexpr int MIN_BLOCKS = 4;")),
         "mma 64-key tiles, 2 blocks/SM": edit(
             mma, ("constexpr int BK = 32;", "constexpr int BK = 64;"),
-            (lb, "__launch_bounds__(THREADS, 2)")),
+            (lb, "constexpr int MIN_BLOCKS = 2;")),
         "mma P in bf16 alone (no lo product)": drop(mma, "], pl, bv["),
     }
     dec_variants = {f"decode split {n}": edit(
@@ -125,7 +240,7 @@ def main() -> None:
                 continue
             out = torch.empty_like(q)
             args = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    b, lq, lq, hq, hkv, d, 1, d ** -0.5,
+                    b, lq, lq, hq, hkv, d, 1, 0, d ** -0.5,
                     *strides(q, k, v, out), stream)
 
             def call(fn=fn, args=args):
@@ -153,7 +268,7 @@ def main() -> None:
             part = torch.empty(b * hkv * -(-lk // split) * (hq // hkv)
                                * (d + 2), device=dev)
             args = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    part.data_ptr(), 1, b, 1, lk, valid, hq, hkv, d, 1,
+                    part.data_ptr(), 1, b, 1, lk, valid, hq, hkv, d, 1, 0,
                     d ** -0.5, *strides(q, k, v, out), stream)
             calls.append(lambda fn=fn, args=args: _build.check(
                 fn(*args), "variant"))
