@@ -41,9 +41,11 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ("f32"); musicgen-medium's 24/24 heads at D=64 (g=1), granite-moe-3b's
    24/8 at D=64 and qwen2-vl-7b's 28/4 at D=128 (g=7), each a prefill
    ("mma") and a decode step ("decode"); and, untimed, the float32 shapes
-   of the 4-layer checks of phases 7 and 16) and K5
+   of the 4-layer checks of phases 7 and 16 and phase 17's L=1024 shapes
+   that the timed rows miss) and K5
    ``wkv_chunked`` (BH=512, n=64, T=1000 and 1024, with and without s0,
-   and the model's [8, 1000, 64, 64] projections as [B, H, T, n] views)
+   and the model's [8, 1000, 64, 64] projections as [B, H, T, n] views;
+   untimed at T=1024, phase 17's)
    against their plain versions on the card, within stated tolerances;
    device times beside the bound and, for K4, beside
    ``scaled_dot_product_attention`` (timed here only, as a yardstick),
@@ -94,13 +96,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ub.  Both: every candidate within 1e-4 of the hose caps, 5 executes,
    one compile key; wall, instances/s and the device's idle share over
    one profiled round;
-13. the design layer — (a) ``design.optimize`` at
-   ``benchmarks/design_bench.py``'s paper budget (3 rounds, fleet 8,
-   elite 3, 2 runs, ``DualEngine(iters=250, tol=1e-3)``, K1) on
+13. the design layer — (a) ``design.optimize`` at a cut of
+   ``benchmarks/design_bench.py``'s paper budget (2 rounds of its 3, fleet
+   6 of 8, elite 3, 2 runs, ``DualEngine(iters=250, tol=1e-3)``, K1) on
    ``VL2Space(VL2Spec(6, 6, 20))`` and the two-class pool (10 x 18 + 20
    x 6 ports, 90 servers, ``robust=True``): best lb >= the recipe's, 1 +
    rounds search executes on one compile key; (b)
-   ``launch.figures.fig11`` at d_a = d_i = 6 (``FIG11_D``), 5 runs, HiGHS
+   ``launch.figures.fig11`` at d_a = d_i = 4 (``FIG11_D``), 5 runs, HiGHS
    as the criterion (its LPs in worker processes), then the designer's search
    at the recipe's ToR count again: its pick's certified lb >= the
    recipe's, and designed ToRs >= rewired ToRs exactly when the pick
@@ -125,7 +127,7 @@ Phases (any failure exits non-zero; no phase catches and continues):
    keys, lb <= ub on every trial, lb <= HiGHS θ <= ub on the first trial
    of each family x kind at fraction 0.2 (LPs in phase 10's workers);
    (b) ``plan_expansion`` at the benchmark's block (rewired VL2(4, 2, 4)
-   with 4 ToRs, 3 steps of two 4-port switches, budget 3, 2 rounds of 6):
+   with 4 ToRs, 2 steps of two 4-port switches, budget 3, 2 rounds of 4):
    a monotone certified lb, recabling within the budget at every step;
 16. the moe, vlm, audio and hybrid families served at full width and depth
    through the port's entry points, 8 requests and 16 greedy tokens each:
@@ -142,7 +144,29 @@ Phases (any failure exits non-zero; no phase catches and continues):
    that differ from the plain path (printed only; read in an untimed
    replay of the served prefill and steps); the 4-layer float32
    check; a profiled prefill and decode step of the moe and the hybrid;
-17. summary — one JSON line with every kernel, then the device line last.
+17. training — (a) K4b ``flash_attention_bwd`` at the train shapes of
+   minitron-4b ([8,1024,24/8,128] bf16), musicgen-medium ([8,1024,24/24,64]
+   bf16) and recurrentgemma-2b ([8,3000,10/1,256] bf16, window 2048), in
+   float32 at minitron-4b's, and untimed at recurrentgemma-2b's in float32
+   and on a ragged float32 case (Lq != Lk, lk_valid < Lk, a window), and
+   K5b ``wkv_chunked_bwd`` at [8, T, 64,
+   64] float32 as [B, H, T, n] views (T = 1024 and 1000, s0 and a final
+   state cotangent), each against its plain backward on the card and timed
+   beside its bound (K4b also beside SDPA's backward); (b) musicgen-medium
+   trained at full width and depth through
+   ``repro_torch.launch.train.main`` (6 steps of 8 x 1024 tokens): finite
+   losses and grad norms, every leaf moved, 48 K4 launches a step plus 48
+   recomputed under remat, 48 K4b calls a step, no plain attention or
+   backward, train tokens/s over steps 3-6 and peak device memory; (c)
+   minitron-4b (8 x 1024), rwkv6-7b (8 x 1024) and recurrentgemma-2b (8 x
+   3000) at full width and 4 layers: the first step's loss and every leaf's
+   gradient against the plain path (plain forward and backward) and the
+   float32 plain path (phase 7's relative rule), every leaf non-zero; in
+   float32 with TF32 off every leaf within a tight tolerance that a
+   bf16-rounding attention or WKV is shown to miss; one profiled train step
+   each (device ms of GEMMs, K4/K5, K4b/K5b, the optimizer, the rest; idle
+   share);
+18. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -152,7 +176,8 @@ Launch counts are reset just before each path's run (phase 3's, each of
 phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
 solves, phase 10's figure, phase 11's two streamed closures, each search
 of phases 12-13, phase 13's figure, each engine's pile of phase 14 and
-each call of phase 15) and read just after it; a kernel
+each call of phase 15, phase 17b's run and each gradient of phase 17c)
+and read just after it; a kernel
 of a path that was not launched fails the run.  The summary reports every
 path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
 that needs it (phase 3 for K3, the blocked-fw run for K1 and K2), and
@@ -162,7 +187,9 @@ the full-sequence (prefill) and decode sites and by route (phase 16's
 four families among them).  K4's
 ``launches`` are from minitron-4b's full-depth generate, K5's from
 rwkv6-7b's; every K4 launch of the bf16 prefill must take route "mma" and
-every one of a decode step route "decode".
+every one of a decode step route "decode".  K4b's ``launches`` are from
+phase 17b's musicgen-medium training (one a call, three kernels), K5b's
+from phase 17c's rwkv6-7b gradient.
 """
 from __future__ import annotations
 
@@ -225,8 +252,8 @@ def call_ms(fn) -> float:
     return statistics.median(times)
 
 
-def time_ms(fn) -> float:
-    """Device milliseconds of one call: after warm-up, TIMING_RUNS calls
+def time_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """Device milliseconds of one call: after warm-up, ``runs`` calls
     are queued behind a device sleep that outlasts their launching, so the
     CUDA events around them time the device alone (median of 3 batches).
     ``fn`` may be a list of calls, taken in turn (inputs that must come
@@ -236,7 +263,7 @@ def time_ms(fn) -> float:
         f()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for i in range(TIMING_RUNS):
+    for i in range(runs):
         fns[i % len(fns)]()
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
@@ -248,11 +275,11 @@ def time_ms(fn) -> float:
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)
         a.record()
-        for i in range(TIMING_RUNS):
+        for i in range(runs):
             fns[i % len(fns)]()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / TIMING_RUNS)
+        times.append(a.elapsed_time(b) / runs)
     return statistics.median(times)
 
 
@@ -737,13 +764,15 @@ PROBE_N, PROBE_D, PROBE_BLOCK = 16384, 16, 1024
 # tolerance in flow units (tests/test_adversarial.py)
 ADV_BUDGET = dict(rounds=4, candidates=8, iters=300)
 HOSE_TOL = 1e-4
-# benchmarks/design_bench.py's paper budget and ranking engine
-DESIGN_BUDGET = dict(rounds=3, fleet=8, elite=3, runs=2)
+# benchmarks/design_bench.py's ranking engine and a cut of its paper budget
+# (rounds=3, fleet=8, elite=3, runs=2): 2 rounds of fleet 6, so that the
+# script stays inside its time on a slow host (ROADMAP S1)
+DESIGN_BUDGET = dict(rounds=2, fleet=6, elite=3, runs=2)
 DESIGN_ITERS = 250
-# Fig. 11's designed column at d_a = d_i = 6, a size of the paper's small
-# scale: at d = 10 (its paper scale) the column took 196-221 s and at d = 8
-# 118 s on an H100, time that phases 14-15 need
-FIG11_D = 6
+# Fig. 11's designed column at d_a = d_i = 4, the smallest size of the
+# paper's small scale: at d = 10 (its paper scale) the column took 196-221 s,
+# at d = 8 118 s and at d = 6 59-96 s on an H100, time that phases 14-17 need
+FIG11_D = 4
 # benchmarks/fig11.py's row keys
 FIG11_KEYS = ["figure", "d_a", "d_i", "traffic", "vl2_tors", "rewired_tors",
               "gain_pct", "designed_tors", "designed_gain_pct",
@@ -979,7 +1008,7 @@ def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
     budget on its two spaces (the two-class one with ``robust=True``):
     best lb >= the recipe's, 1 + rounds search executes, one compile key
     for the search rounds; (b) Fig. 11's designed column at d_a = d_i =
-    10, 5 runs, with HiGHS as the criterion (its LPs in worker
+    FIG11_D, 5 runs, with HiGHS as the criterion (its LPs in worker
     processes), and the designer's search at the recipe's ToR count run
     again: its pick's certified lb >= the recipe's, and the designed
     count >= the recipe's exactly when that pick holds the figure's 5
@@ -1104,7 +1133,9 @@ ROUTING_RUNS, ROUTING_ITERS, ROUTING_K = 3, 400, 8
 LIFE_FRACTIONS = (0.05, 0.1, 0.2, 0.3, 0.45)
 LIFE_TRIALS = 30
 LIFE_ITERS, LIFE_TOL = 300, 1e-3
-GROWTH = dict(growth=[[4, 4]] * 3, max_recabled_links=3, rounds=2, fleet=6,
+# the lifecycle benchmark's expansion block cut to 2 growth steps (of 3) and
+# fleets of 4 (of 6), for the script's time (ROADMAP S1)
+GROWTH = dict(growth=[[4, 4]] * 2, max_recabled_links=3, rounds=2, fleet=4,
               elite=2, runs=2, seed=0)
 
 
@@ -1291,7 +1322,7 @@ def phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs, pool) -> dict:
     steps, tol 1e-3: K1): 3 executes, 2 refills, <= 4 compile keys, lb <=
     ub on every trial, lb <= HiGHS θ <= ub on each family x kind's first
     trial at fraction 0.2 (LPs in ``pool``); (b) ``plan_expansion`` at
-    the benchmark's block (rewired VL2(4, 2, 4) with 4 ToRs, 3 steps of
+    the benchmark's block (rewired VL2(4, 2, 4) with 4 ToRs, 2 steps of
     two 4-port switches, budget 3): a monotone lb, recabling within the
     budget at every step."""
     from repro_torch import lifecycle
@@ -1382,7 +1413,8 @@ def phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs, pool) -> dict:
         tor = t.labels == 0
         return tor[:, None] & tor[None, :]
 
-    name = "phase 15b expansion VL2(4,2,4) 3 steps, budget 3"
+    steps = len(GROWTH["growth"])
+    name = f"phase 15b expansion VL2(4,2,4) {steps} steps, budget 3"
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1394,7 +1426,8 @@ def phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs, pool) -> dict:
     record_path(name, runs, ["minplus_acc"])
     lbs = [st.lb for st in grown.steps]
     budget = GROWTH["max_recabled_links"]
-    if len(lbs) != 4 or not all(b >= a for a, b in zip(lbs, lbs[1:])) or \
+    if len(lbs) != steps + 1 or \
+            not all(b >= a for a, b in zip(lbs, lbs[1:])) or \
             not all(st.recabled <= budget for st in grown.steps) or \
             not all(0 < st.lb <= st.ub for st in grown.steps):
         raise SystemExit(f"chip_smoke: {name}: lbs {lbs}, recabled "
@@ -1464,23 +1497,29 @@ def close(name: str, got: torch.Tensor, want: torch.Tensor,
     return float(err.max())
 
 
-def sdpa_call(q, k, v, lk_valid, window=0):
-    """One ``scaled_dot_product_attention`` call on K4's inputs in torch's
-    [B, H, L, D] layout (transposed outside the timed call); a local window
-    goes in as an explicit ``attn_mask``."""
-    import torch.nn.functional as F
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    lq, lk = q.shape[1], k.shape[1]
+def sdpa_mask(lq: int, lk: int, lk_valid: int, window: int,
+              device) -> dict:
+    """``scaled_dot_product_attention``'s masking for K4's visibility rule:
+    ``is_causal`` when it is plain causal attention, else an explicit
+    ``attn_mask`` (a local window among it)."""
     if lk_valid == lk and lq == lk and not window:
-        return lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-    kpos = torch.arange(lk, device=q.device)
-    qpos = torch.arange(lq, device=q.device) + (lk_valid - lq)
+        return dict(is_causal=True)
+    kpos = torch.arange(lk, device=device)
+    qpos = torch.arange(lq, device=device) + (lk_valid - lq)
     mask = (kpos[None, :] < lk_valid) & (kpos[None, :] <= qpos[:, None])
     if window:
         mask &= kpos[None, :] > qpos[:, None] - window
-    return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True)
+    return dict(attn_mask=mask)
+
+
+def sdpa_call(q, k, v, lk_valid, window=0):
+    """One ``scaled_dot_product_attention`` call on K4's inputs in torch's
+    [B, H, L, D] layout (transposed outside the timed call)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kw = sdpa_mask(q.shape[1], k.shape[1], lk_valid, window, q.device)
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                  enable_gqa=True, **kw)
 
 
 def visible_pairs(lq: int, valid: int, window: int = 0) -> int:
@@ -1612,30 +1651,38 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         out[f"flash_attention/{key}"] = row
         del q, k, v, got, want, inputs
 
-    # the other float32 shapes that the 4-layer float32 checks of phases 7
-    # and 16 give K4 (prefill of the new families at L = 1000, every decode
-    # step): held against the plain version on the same inputs, not timed
-    f32 = torch.float32
-    for key, label, lq, lk, valid, (hq, hkv, d) in (
+    # the other shapes that the 4-layer float32 checks of phases 7 and 16
+    # give K4 (prefill of the new families at L = 1000, every decode step),
+    # and the train shapes of phase 17 that the rows above miss (musicgen-
+    # medium's bf16 and minitron-4b's float32 forward at L = 1024): held
+    # against the plain version on the same inputs, not timed
+    f32, bf16 = torch.float32, torch.bfloat16
+    for key, label, lq, lk, valid, dtype, (hq, hkv, d) in (
+            ("train_g1", "train [8,1024,24/24,64] bf16 causal", 1024, 1024,
+             1024, bf16, g1),
+            ("train_f32", "train [8,1024,24/8,128] f32 causal", 1024, 1024,
+             1024, f32, m128),
             ("decode_f32", "decode [8,1,24/8,128] f32, cache 1016, lk_valid "
-             "1001", 1, 1016, 1001, m128),
+             "1001", 1, 1016, 1001, f32, m128),
             ("prefill_f32_d64", "prefill [8,1000,24/8,64] f32 causal", 1000,
-             1000, 1000, m64),
+             1000, 1000, f32, m64),
             ("decode_f32_d64", "decode [8,1,24/8,64] f32, cache 1016, "
-             "lk_valid 1001", 1, 1016, 1001, m64),
+             "lk_valid 1001", 1, 1016, 1001, f32, m64),
             ("prefill_f32_g7", "prefill [8,1000,28/4,128] f32 causal", 1000,
-             1000, 1000, g7),
+             1000, 1000, f32, g7),
             ("decode_f32_g7", "decode [8,1,28/4,128] f32, cache 1016, "
-             "lk_valid 1001", 1, 1016, 1001, g7),
+             "lk_valid 1001", 1, 1016, 1001, f32, g7),
             ("prefill_f32_g1", "prefill [8,1000,24/24,64] f32 causal", 1000,
-             1000, 1000, g1),
+             1000, 1000, f32, g1),
             ("decode_f32_g1", "decode [8,1,24/24,64] f32, cache 1016, "
-             "lk_valid 1001", 1, 1016, 1001, g1),
+             "lk_valid 1001", 1, 1016, 1001, f32, g1),
             ("decode_f32_d256_ring", "decode [8,1,10/1,256] f32, ring 2048, "
-             "lk_valid 2048", 1, 2048, 2048, m256)):
-        q = randn(b, lq, hq, d, dtype=f32)
-        k, v = randn(b, lk, hkv, d, dtype=f32), randn(b, lk, hkv, d, dtype=f32)
-        route = kfa.flash_route(f32, lq, hq // hkv)
+             "lk_valid 2048", 1, 2048, 2048, f32, m256)):
+        q = randn(b, lq, hq, d, dtype=dtype)
+        k = randn(b, lk, hkv, d, dtype=dtype)
+        v = randn(b, lk, hkv, d, dtype=dtype)
+        route = kfa.flash_route(dtype, lq, hq // hkv)
+        tol = K4_BF16_TOL if dtype == bf16 else K4_F32_TOL
         before = _build.SITE_LAUNCHES[f"flash_attention/route:{route}"]
         got = kfa.flash_attention(q, k, v, causal=True, lk_valid=valid)
         if _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] != \
@@ -1646,8 +1693,8 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         row = {"kernel": "flash_attention", "shape": label, "route": route,
                "source": K4_SOURCES[route], "timed": False,
                "max_abs_err": close(f"K4 {label} (route {route})", got, want,
-                                    K4_F32_TOL),
-               "tolerance": K4_F32_TOL}
+                                    tol),
+               "tolerance": tol}
         log(json.dumps(row))
         out[f"flash_attention/{key}"] = row
         del q, k, v, got, want
@@ -1696,30 +1743,104 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         log(json.dumps(row))
         out[f"wkv_chunked/{key}"] = row
         del r, k, v, log_w, u, s0, o, s, want_o, want_s
+
+    # rwkv6-7b's train shape in phase 17c (the model's views at T = 1024, no
+    # s0): held against the plain version, not timed
+    r, k, v = (randn(8, 1024, bh // 8, n).permute(0, 2, 1, 3)
+               for _ in range(3))
+    log_w = -torch.clamp(torch.exp(randn(8, 1024, bh // 8, n)), 1e-6,
+                         2.5).permute(0, 2, 1, 3)
+    u = randn(bh // 8, n) * 0.5
+    o, s = kwkv.wkv_chunked(r, k, v, log_w, u)
+    want_o, want_s = kwkv.wkv_chunked_plain(r, k, v, log_w, u)
+    row = {"kernel": "wkv_chunked", "timed": False,
+           "shape": "train [8,1024,64,64] f32 as [B,H,T,n] views",
+           "max_abs_err": max(close("K5 o heads T1024", o, want_o, K5_TOL),
+                              close("K5 s_final heads T1024", s, want_s,
+                                    K5_TOL)),
+           "tolerance": K5_TOL}
+    log(json.dumps(row))
+    out["wkv_chunked/heads T1024"] = row
+    del r, k, v, log_w, u, o, s, want_o, want_s
     return out
 
 
 @contextlib.contextmanager
+def no_plain_kernels(kfa, kwkv):
+    """Fail the block if a plain version of K4, K4b, K5 or K5b ran (the
+    wrappers take them only for CPU tensors)."""
+    names = {kfa: ("flash_attention_plain", "flash_attention_bwd_plain"),
+             kwkv: ("wkv_chunked_plain", "wkv_chunked_bwd_plain")}
+    saved, calls = [], []
+    for mod, fns in names.items():
+        for fn in fns:
+            plain = getattr(mod, fn)
+
+            def spy(*args, _fn=fn, _plain=plain, **kw):
+                calls.append(_fn)
+                return _plain(*args, **kw)
+
+            saved.append((mod, fn, plain))
+            setattr(mod, fn, spy)
+    try:
+        yield
+    finally:
+        for mod, fn, plain in saved:
+            setattr(mod, fn, plain)
+    if calls:
+        raise SystemExit(f"chip_smoke: plain versions ran on the card: "
+                         f"{sorted(set(calls))}")
+
+
+@contextlib.contextmanager
 def plain_path(kops, kfa, kwkv, bf16_inputs: bool = False):
-    """Run the model with K4's and K5's plain versions in place of the
-    kernels (``ops`` is where the model looks them up).  With
-    ``bf16_inputs`` the plain versions see their inputs rounded to bf16:
-    what an attention or WKV that computed in bf16 would give."""
+    """Run the model with K4/K4b and K5/K5b swapped for autograd functions
+    of their plain forwards and plain backwards (``ops`` is where the model
+    looks them up): serving runs the plain forwards, training their plain
+    backwards too.  With ``bf16_inputs`` every input of those forwards and
+    backwards is rounded to bf16 first: an attention or WKV that computes,
+    forward and backward, in bf16."""
     def rnd(x):
-        return x.to(torch.bfloat16).to(x.dtype) if bf16_inputs else x
+        return x.to(torch.bfloat16).to(x.dtype) if bf16_inputs and \
+            x is not None else x
+
+    class Attn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kw):
+            o = kfa.flash_attention_plain(rnd(q), rnd(k), rnd(v), **kw)
+            ctx.save_for_backward(q, k, v, o)
+            ctx.kw = kw
+            return o
+
+        @staticmethod
+        def backward(ctx, do):
+            q, k, v, o = ctx.saved_tensors
+            return (*kfa.flash_attention_bwd_plain(
+                rnd(q), rnd(k), rnd(v), rnd(o), rnd(do), **ctx.kw), None)
+
+    class WKV(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, r, k, v, log_w, u, s0):
+            ctx.set_materialize_grads(False)
+            ctx.save_for_backward(r, k, v, log_w, u, s0)
+            return kwkv.wkv_chunked_plain(rnd(r), rnd(k), rnd(v), rnd(log_w),
+                                          u, s0)
+
+        @staticmethod
+        def backward(ctx, do, ds):
+            r, k, v, log_w, u, s0 = ctx.saved_tensors
+            if do is None:
+                do = torch.zeros_like(r)
+            return kwkv.wkv_chunked_bwd_plain(rnd(r), rnd(k), rnd(v),
+                                              rnd(log_w), u, s0, rnd(do), ds)
 
     def attention(q, k, v, *, causal=True, scale=None, lk_valid=None,
                   window=0, site=None):
-        return kfa.flash_attention_plain(rnd(q), rnd(k), rnd(v),
-                                         causal=causal, scale=scale,
-                                         lk_valid=lk_valid, window=window)
-
-    def wkv(r, k, v, log_w, u, s0=None):
-        return kwkv.wkv_chunked_plain(rnd(r), rnd(k), rnd(v), rnd(log_w), u,
-                                      s0)
+        return Attn.apply(q, k, v, dict(causal=causal, scale=scale,
+                                        lk_valid=lk_valid, window=window))
 
     saved = kops.flash_attention, kops.wkv_chunked
-    kops.flash_attention, kops.wkv_chunked = attention, wkv
+    kops.flash_attention, kops.wkv_chunked = attention, WKV.apply
     try:
         yield
     finally:
@@ -2092,26 +2213,6 @@ def moe_routes(moe_lib, routes: list):
         moe_lib._top_k_dispatch = dispatch
 
 
-@contextlib.contextmanager
-def no_plain_attention(kfa):
-    """Fail the block if K4's wrapper ran a plain version (it does so only
-    for CPU tensors)."""
-    plain = kfa.flash_attention_plain
-    calls = []
-
-    def spy(*args, **kw):
-        calls.append(args[0].device)
-        return plain(*args, **kw)
-
-    kfa.flash_attention_plain = spy
-    try:
-        yield
-    finally:
-        kfa.flash_attention_plain = plain
-    if calls:
-        raise SystemExit(f"chip_smoke: plain attention ran on {calls[:3]}")
-
-
 def slice_layers(params: dict, n: int) -> dict:
     """The first ``n`` layers' parameters (stacked tensors or the hybrid's
     list of per-layer dicts)."""
@@ -2215,7 +2316,7 @@ def phase_family(phase: str, arch: str, positions: int, seed: int,
 
     _build.reset_launches()
     rec: dict = {}
-    with no_plain_attention(kfa):
+    with no_plain_kernels(kfa, kwkv):
         generated = serve_family(cfg, params, batch, rec)
     counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
     steps = rec["decode_steps"]
@@ -2257,7 +2358,7 @@ def phase_family(phase: str, arch: str, positions: int, seed: int,
         # path's routes come from a replay of the served prefill and steps
         # outside the timed run
         routes: list = []
-        with no_plain_attention(kfa), moe_routes(moe_lib, routes):
+        with no_plain_kernels(kfa, kwkv), moe_routes(moe_lib, routes):
             forced_logits(model, params, batch, generated, stepwise)
         if [r.shape for r in routes] != [r.shape for r in plain_routes]:
             raise SystemExit(f"chip_smoke: {name}: the plain path routed "
@@ -2277,7 +2378,7 @@ def phase_family(phase: str, arch: str, positions: int, seed: int,
     n4 = cfg4.layer_kinds.count("attn")
     _build.reset_launches()
     rec4: dict = {}
-    with no_plain_attention(kfa):
+    with no_plain_kernels(kfa, kwkv):
         gen4 = serve_family(cfg4, params4, batch, rec4)
     name4 = f"phase {phase} {arch} 8x{positions}+{GEN}, 4 layers, float32"
     runs.append({"path": name4, "launches": dict(_build.LAUNCHES),
@@ -2313,6 +2414,432 @@ def phase_family(phase: str, arch: str, positions: int, seed: int,
         log(json.dumps({"profile": f"phase {phase} {arch} full depth",
                         **res["profile"]}))
     del params, model, got, rec, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---------------------------------------------------------------------------
+# training (phase 17)
+# ---------------------------------------------------------------------------
+
+# K4b against its plain backward: (key, label, [b, lq, lk, hq, hkv, d],
+# dtype, lk_valid, window, timed).  The bf16 rows are the train shapes of
+# minitron-4b, musicgen-medium and recurrentgemma-2b (past its window); the
+# float32 rows are those of the 4-layer float32 checks (minitron-4b's timed,
+# recurrentgemma-2b's D = 256 band untimed); the ragged row is untimed
+K4B_SHAPES = (
+    ("minitron-4b", "[8,1024,24/8,128] bf16 causal",
+     (8, 1024, 1024, 24, 8, 128), torch.bfloat16, None, 0, True),
+    ("musicgen-medium", "[8,1024,24/24,64] bf16 causal",
+     (8, 1024, 1024, 24, 24, 64), torch.bfloat16, None, 0, True),
+    ("recurrentgemma-2b", "[8,3000,10/1,256] bf16 causal, window 2048",
+     (8, 3000, 3000, 10, 1, 256), torch.bfloat16, None, 2048, True),
+    ("minitron-4b f32", "[8,1024,24/8,128] f32 causal",
+     (8, 1024, 1024, 24, 8, 128), torch.float32, None, 0, True),
+    ("recurrentgemma-2b f32", "[8,3000,10/1,256] f32 causal, window 2048",
+     (8, 3000, 3000, 10, 1, 256), torch.float32, None, 2048, False),
+    ("ragged f32", "[2,300/400,8/2,128] f32, lk_valid 350, window 100",
+     (2, 300, 400, 8, 2, 128), torch.float32, 350, 100, False),
+)
+# gradients against the plain backward on the same inputs, atol relative to
+# each gradient's own largest entry: float32 is the same algebra summed in
+# another order (over up to Lq g rows for dK and dV); bf16 rounds float32
+# results to bf16 in both, one bf16 ulp apart at most (|x| / 128)
+K4B_TOL = {torch.bfloat16: (1e-3, 8e-3), torch.float32: (1e-4, 1e-4)}
+# K5b: the chunk algebra in float32 summed in another order; exponents up to
+# +-80 in a chunk scale the rounding of exp (K5's tolerance, relative to
+# each gradient's largest entry)
+K5B_TOL = (1e-4, 1e-4)
+K5B_CHUNK = 32
+# timed calls a batch (of TIMING_RUNS elsewhere): each backward call takes
+# 4.8-134 ms, so a batch of 5 lasts 24 ms or more, far above the events'
+# resolution and behind the same device sleep; 30 would add about a minute
+PHASE17_RUNS = 5
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
+# phase 17c: (architecture, sequence length, seed), full width, 4 layers
+TRAIN_FAMILIES = (("minitron-4b", 1024, 11), ("rwkv6-7b", 1024, 12),
+                  ("recurrentgemma-2b", 3000, 13))
+# float32 (TF32 off) gradients of the kernel path against the plain path,
+# rel L2 per leaf: the two differ in the order of additions only, which
+# moves a leaf by about 1e-3 of what rounding the attention's or WKV's
+# inputs to bf16 moves it (2^-24 against 2^-9, amplified alike), and the
+# bf16-rounding plain path must miss the tolerance.  For the attention
+# families that is 1e-4.  rwkv6-7b at a random init is ill-conditioned:
+# bf16-rounded WKV inputs move its leaves by tens of percent (its bf16
+# logits land far from float32 too: phase 8), so the same ratio puts its
+# float32 differences near 1e-3 (``tools/wkv_grad_split.py`` splits them:
+# K5b's own part is ~1e-6 of a leaf, the rest is K5's forward rounding,
+# amplified through the model): 1e-2, which the bf16-rounding path still
+# misses by far.  bf16: phase 7's relative rule, and a loss within half a
+# bf16 ulp (2^-9) of the float32 loss counts as on it
+TRAIN_FP32_TOL = {"rwkv6-7b": 1e-2}
+TRAIN_FP32_TOL_ATTENTION = 1e-4
+TRAIN_LOSS_FLOOR = 2.0 ** -9
+
+
+def close_scaled(name: str, got, want, tol) -> float:
+    """Max abs error of a call's gradients (lists, None skipped); fails
+    unless |got - want| <= atol * scale + rtol |want| for each gradient,
+    scale that gradient's largest entry in ``want``."""
+    torch.cuda.synchronize()
+    atol, rtol = tol
+    worst = 0.0
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        g, w = g.double(), w.double()
+        scale = float(w.abs().max())
+        err = (g - w).abs()
+        if not bool(torch.isfinite(g).all()) or bool(
+                (err > atol * scale + rtol * w.abs()).any()):
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain "
+                             f"backward (max abs diff {float(err.max())}, "
+                             f"scale {scale}, atol {atol}, rtol {rtol})")
+        worst = max(worst, float(err.max()))
+    return worst
+
+
+def grad_rel_l2(got, want) -> list[float]:
+    """||got - want|| / ||want|| of each gradient of a call."""
+    return leaf_rel([g for g, w in zip(got, want) if w is not None],
+                    [w for w in want if w is not None])
+
+
+def sdpa_grad_ms(q, k, v, do, lk_valid, window, runs) -> float:
+    """SDPA's backward on K4b's inputs: forward plus backward, less the
+    forward (a timing yardstick only)."""
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    kw = sdpa_mask(q.shape[1], k.shape[1], lk_valid, window, q.device)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True,
+                                              **kw)
+
+    def both():
+        torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        f_ms = time_ms(fwd, runs)
+    return time_ms(both, runs) - f_ms
+
+
+def wkv_bwd_terms(lanes: int, t: int, n: int) -> tuple[float, float]:
+    """(flops, bytes) of K5b: per chunk of c <= 32 steps and lane, five
+    strictly lower c x c products over n (A, dA, A^T dO, dA k~, dA^T r~:
+    5 c(c-1)/2 n multiply-adds) and five c x n x n ones (k^ dS, dO S^T,
+    V dS^T, the dS carry, the forward sweep's state: 5 c n^2), summed over
+    the chunks of this T (the last one ragged; csrc/wkv_bwd.cu); r, k, v,
+    log w, dO read and dr, dk, dv, dlog w written once, s0 and ds0 once."""
+    macs = 0
+    for c0 in range(0, t, K5B_CHUNK):
+        c = min(K5B_CHUNK, t - c0)
+        macs += 5 * c * (c - 1) // 2 * n + 5 * c * n * n
+    return 2.0 * macs * lanes, 4.0 * (9 * lanes * t * n + 2 * lanes * n * n)
+
+
+def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
+    """17a: K4b and K5b against their plain backwards on the card, timed
+    beside their bounds (and, for K4b, SDPA's backward)."""
+    from repro_torch.kernels import _build
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    out = {}
+    for key, label, (b, lq, lk, hq, hkv, d), dtype, valid, window, timed \
+            in K4B_SHAPES:
+        q, do = randn(b, lq, hq, d, dtype=dtype), randn(b, lq, hq, d,
+                                                        dtype=dtype)
+        k, v = randn(b, lk, hkv, d, dtype=dtype), randn(b, lk, hkv, d,
+                                                        dtype=dtype)
+        valid = lk if valid is None else valid
+        kw = dict(causal=True, lk_valid=valid, window=window)
+        o = kfa.flash_attention(q, k, v, **kw)
+        before = _build.LAUNCHES["flash_attention_bwd"]
+        got = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
+        if _build.LAUNCHES["flash_attention_bwd"] != before + 1:
+            raise SystemExit(f"chip_smoke: K4b {key} did not count its call")
+        want = kfa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        err = close_scaled(f"K4b {key}", got, want, K4B_TOL[dtype])
+        row = {"kernel": "flash_attention_bwd", "shape": label,
+               "max_abs_err": err, "tolerance": K4B_TOL[dtype],
+               "rel_l2_dq_dk_dv": grad_rel_l2(got, want), "timed": timed}
+        del got, want
+        if timed:
+            es = q.element_size()
+            flops = 10.0 * d * visible_pairs(lq, valid, window) * hq * b
+            nbytes = es * (4 * q.numel() + 4 * k.numel())
+            rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
+                FP32_FLOP_PER_S
+            bnd, kind = flop_bound_ms(flops, rate, nbytes)
+            row.update(
+                ms=time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do,
+                                                           **kw),
+                           PHASE17_RUNS),
+                plain_ms=time_ms(lambda: kfa.flash_attention_bwd_plain(
+                    q, k, v, o, do, **kw), PHASE17_RUNS),
+                library_ms=sdpa_grad_ms(q, k, v, do, valid, window,
+                                        PHASE17_RUNS),
+                bound_ms=bnd, bound_kind=kind, flops=flops)
+        log(json.dumps(row))
+        out[f"flash_attention_bwd/{key}"] = row
+        del q, k, v, o, do
+    torch.cuda.empty_cache()
+
+    # K5b on the model's layout: [B, T, H, n] projections as [B, H, T, n]
+    # views, u per head, a non-zero s0 and a cotangent for the final state
+    b, h, n = 8, 64, 64
+    for t in (1024, 1000):
+        def view(x):
+            return x.permute(0, 2, 1, 3)
+        r, k, v, dout = (view(randn(b, t, h, n)) for _ in range(4))
+        log_w = view(-torch.clamp(torch.exp(randn(b, t, h, n)), 1e-6, 2.5))
+        u = randn(h, n) * 0.5
+        s0 = randn(b, h, n, n) * 0.3
+        ds = randn(b, h, n, n)
+        args = (r, k, v, log_w, u, s0, dout, ds)
+        before = _build.LAUNCHES["wkv_chunked_bwd"]
+        got = kwkv.wkv_chunked_bwd(*args)
+        if _build.LAUNCHES["wkv_chunked_bwd"] != before + 1:
+            raise SystemExit("chip_smoke: K5b did not count its call")
+        want = kwkv.wkv_chunked_bwd_plain(*args)
+        err = close_scaled(f"K5b T={t}", got, want, K5B_TOL)
+        rel = grad_rel_l2(got, want)
+        del got, want
+        flops, nbytes = wkv_bwd_terms(b * h, t, n)
+        bnd, kind = flop_bound_ms(flops, FP32_FLOP_PER_S, nbytes)
+        row = {"kernel": "wkv_chunked_bwd",
+               "shape": f"[{b},{t},{h},{n}] f32 as [B,H,T,n] views, s0, ds",
+               "max_abs_err": err, "tolerance": K5B_TOL,
+               "rel_l2_dr_dk_dv_dlogw_du_ds0": rel, "timed": True,
+               "ms": time_ms(lambda: kwkv.wkv_chunked_bwd(*args),
+                             PHASE17_RUNS),
+               "plain_ms": time_ms(lambda: kwkv.wkv_chunked_bwd_plain(*args),
+                                   PHASE17_RUNS),
+               "library_ms": None, "bound_ms": bnd, "bound_kind": kind,
+               "flops": flops}
+        log(json.dumps(row))
+        out[f"wkv_chunked_bwd/T{t}"] = row
+        del r, k, v, dout, log_w, u, s0, ds, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_entry(runs: list) -> dict:
+    """17b: musicgen-medium at full width and depth through
+    ``repro_torch.launch.train.main``: 6 steps of 8 x 1024 tokens; finite
+    losses and grad norms, every leaf moved, 48 K4 launches a step forward
+    and 48 more recomputed under remat (route "mma"), 48 K4b calls a step,
+    no plain attention or backward; train tokens/s over steps 3-6 (host
+    clock, synchronised) and peak device memory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import train
+    arch, nl, steps = "musicgen-medium", 48, TRAIN_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    rec: dict = {}
+    t0 = time.perf_counter()
+    with no_plain_kernels(kfa, kwkv):
+        out = train.main(["--arch", arch, "--batch", str(TRAIN_BATCH),
+                          "--seq", str(TRAIN_SEQ), "--steps", str(steps),
+                          "--warmup", "2", "--log-every", "1"], record=rec)
+    wall = time.perf_counter() - t0
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+    name = (f"phase 17b {arch} train 8x{TRAIN_SEQ}, {nl} layers, "
+            f"{steps} steps")
+    runs.append({"path": name, "launches": counts, "sites": sites,
+                 "steps": steps})
+    fwd, bwd = 2 * nl * steps, nl * steps
+    want_sites = {"flash_attention/full": fwd,
+                  "flash_attention/route:mma": fwd,
+                  "flash_attention_bwd/full": bwd}
+    if counts["flash_attention"] != fwd or \
+            counts["flash_attention_bwd"] != bwd or sites != want_sites:
+        raise SystemExit(f"chip_smoke: {name}: launches {counts} {sites}, "
+                         f"want K4 {fwd} and K4b {bwd}: {want_sites}")
+    losses, gnorms = rec["losses"], rec["grad_norms"]
+    if out["steps"] != steps or not np.all(np.isfinite(losses + gnorms)):
+        raise SystemExit(f"chip_smoke: {name}: losses {losses}, grad norms "
+                         f"{gnorms}")
+    first, last = rec["param_sums"]
+    still = [i for i, (a, b) in enumerate(zip(first, last)) if a == b]
+    if still:
+        raise SystemExit(f"chip_smoke: {name}: leaves {still} did not move")
+    timed_s = sum(rec["step_s"][2:])
+    res = {"phase": "17b", "arch": arch, "layers": nl, "dtype": "bfloat16",
+           "steps": steps, "losses": losses, "grad_norms": gnorms,
+           "step_s": rec["step_s"],
+           "train_tok_per_s": TRAIN_BATCH * TRAIN_SEQ * (steps - 2) / timed_s,
+           "step_ms": timed_s / (steps - 2) * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "wall_s": wall, "launches": counts, "sites": sites}
+    log(json.dumps(res))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def leaf_rel(got: list, want: list) -> list[float]:
+    """||got - want|| / ||want|| per leaf (0 where want is 0)."""
+    out = []
+    for g, w in zip(got, want):
+        g, w = g.double(), w.double()
+        den = float(torch.linalg.vector_norm(w))
+        num = float(torch.linalg.vector_norm(g - w))
+        out.append(num / den if den else num)
+    return out
+
+
+def profile_train_step(step, params, opt_state, batch) -> dict:
+    """One profiled train step: device ms by group (GEMMs, K4/K5 forward,
+    K4b/K5b, the optimizer, the rest) and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    groups_of = {"K4b": "::bwd_", "K5b": "wkv_bwd_kernel",
+                 "K4": "flash_", "K5": "wkv_chunked_kernel"}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups = kernel_groups(prof, groups_of)
+    opt = range_kernel_ms(prof, "repro_torch.adamw")
+    busy = sum(groups.values())
+    groups["optimizer"] = opt
+    groups["other"] = groups.get("other", 0.0) - opt   # its kernels are "other"
+    return {"wall_ms": wall, "kernel_ms": busy,
+            "device_idle_share": 1 - busy / wall,
+            "kernel_ms_by_group": groups}
+
+
+def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
+    """17c: ``arch`` at full width and 4 layers, 8 x ``seq`` tokens, through
+    the train step's gradient (``models.model._grads``): in bf16 the loss
+    and every leaf's gradient against the plain path (plain forward and
+    backward) and the float32 plain path, phase 7's relative rule, every
+    leaf non-zero; in float32 (TF32 off) every leaf within the family's
+    float32 tolerance (TRAIN_FP32_TOL) of the plain path, which a
+    bf16-rounding plain path must miss; then one profiled train step (AdamW
+    included)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_batch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamW
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=4)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ssm = cfg.family == "ssm"
+    kernel = "wkv_chunked" if ssm else "flash_attention"
+    layers_k = 4 if ssm else cfg.layer_kinds.count("attn")
+    model, model32 = model_lib.get_model(cfg), model_lib.get_model(cfg32)
+    params = model.init_params(seed)
+    if ssm:
+        # decay_b is zero at init (the reference's), which makes decay_a's
+        # gradient zero by construction: draw it so that every leaf has one
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        db = params["blocks"]["decay_b"]
+        db.copy_(torch.randn(db.shape, generator=gen, device="cuda") * 0.01)
+    names = tree_lib.paths(params)
+    batch = make_batch(cfg, TRAIN_BATCH, seq, 0, seed)
+    mb = model_lib._device_batch({k: x[0] for k, x in batch.items()},
+                                 torch.device("cuda"))
+    label = f"phase 17c {arch} 8x{seq}, 4 layers"
+
+    def grads(m, c, tag, want_route):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _build.reset_launches()
+        with no_plain_kernels(kfa, kwkv):
+            metrics, g = model_lib._grads(c, m, params, mb)
+        torch.cuda.synchronize()
+        counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+        runs.append({"path": f"{label}, {tag}", "launches": counts,
+                     "sites": sites, "steps": 1})
+        bwd = kernel + "_bwd"
+        if counts[kernel] != 2 * layers_k or counts[bwd] != layers_k or (
+                want_route and sites.get(f"flash_attention/route:"
+                                         f"{want_route}") != 2 * layers_k):
+            raise SystemExit(f"chip_smoke: {label}, {tag}: launches "
+                             f"{counts} {sites}, want {2 * layers_k} "
+                             f"{kernel} and {layers_k} {bwd}")
+        return float(metrics["loss"]), g, time.perf_counter() - t0
+
+    def plain(m, c, bf16_inputs=False):
+        _build.reset_launches()
+        with plain_path(kops, kfa, kwkv, bf16_inputs):
+            metrics, g = model_lib._grads(c, m, params, mb)
+        if any(_build.LAUNCHES.values()):
+            raise SystemExit("chip_smoke: the plain path launched a kernel")
+        return float(metrics["loss"]), g
+
+    loss_k, g_k, grad_s = grads(model, cfg, "bf16",
+                                None if ssm else "mma")
+    loss_p, g_p = plain(model, cfg)
+    loss_x, g_x = plain(model32, cfg32)
+    rel_k, rel_p = leaf_rel(g_k, g_x), leaf_rel(g_p, g_x)
+    zero = [n for n, g in zip(names, g_k) if float(g.abs().max()) == 0]
+    worse = [(n, a, b) for n, a, b in zip(names, rel_k, rel_p)
+             if not a <= SERVE_BF16_MARGIN * b]
+    loss_ok = abs(loss_k - loss_x) <= max(
+        SERVE_BF16_MARGIN * abs(loss_p - loss_x),
+        TRAIN_LOSS_FLOOR * abs(loss_x))
+    res = {"phase": "17c", "arch": arch, "layers": 4, "seq": seq,
+           "grad_s_bf16": grad_s, "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_fp32": loss_x,
+           "leaf_rel_l2_kernel_vs_fp32": dict(zip(names, rel_k)),
+           "leaf_rel_l2_plain_vs_fp32": dict(zip(names, rel_p)),
+           "margin": SERVE_BF16_MARGIN}
+    del g_k, g_p
+    if zero or worse or not loss_ok:
+        log(json.dumps(res))
+        raise SystemExit(f"chip_smoke: {label}: zero gradients {zero}, "
+                         f"leaves further from float32 than the bf16 plain "
+                         f"path {worse}, loss {loss_k} / {loss_p} / {loss_x}")
+
+    # float32, TF32 off: the tight check
+    _, g_k32, _ = grads(model32, cfg32, "float32", None if ssm else "f32")
+    rel32 = leaf_rel(g_k32, g_x)
+    del g_k32
+    _, g_r = plain(model32, cfg32, bf16_inputs=True)
+    rel_r = leaf_rel(g_r, g_x)
+    del g_r, g_x
+    tol32 = TRAIN_FP32_TOL.get(arch, TRAIN_FP32_TOL_ATTENTION)
+    res.update(fp32_leaf_rel_l2_max=max(rel32),
+               fp32_worst_leaf=names[rel32.index(max(rel32))],
+               fp32_tolerance=tol32,
+               bf16_rounding_plain_leaf_rel_l2_max=max(rel_r),
+               fp32_leaf_rel_l2=dict(zip(names, rel32)),
+               bf16_rounding_plain_leaf_rel_l2=dict(zip(names, rel_r)))
+    if not max(rel32) <= tol32:
+        log(json.dumps(res))
+        raise SystemExit(f"chip_smoke: {label}, float32: gradients off the "
+                         f"plain path: {max(rel32)} at {res['fp32_worst_leaf']}")
+    if not max(rel_r) > tol32:
+        raise SystemExit(f"chip_smoke: {label}: the float32 tolerance does "
+                         "not separate a bf16 attention or WKV")
+
+    # one profiled train step (its optimizer included)
+    opt = AdamW(lr=1e-4)
+    opt_state = opt.init(params)
+    step = model_lib.make_train_step(cfg, opt)
+    res["profile"] = profile_train_step(step, params, opt_state, batch)
+    log(json.dumps(res))
+    del params, opt_state, step, model, model32, mb
     gc.collect()
     torch.cuda.empty_cache()
     return res
@@ -2521,7 +3048,26 @@ def main() -> None:
             f"{served[arch]['decode_tok_per_s']:.1f} tok/s (phase wall "
             f"{time.perf_counter() - t0:.1f} s)")
 
-    # phase 17: summary
+    # phase 17: training (K4b and K5b against their plain backwards; the
+    # entry point at full depth; three families at 4 layers)
+    t17 = time.perf_counter()
+    train_timed = phase_train_kernels(kfa, kwkv)
+    log(f"phase 17a (backward kernels) wall {time.perf_counter() - t17:.1f} s")
+    t0 = time.perf_counter()
+    trained = {"musicgen-medium": phase_train_entry(runs)}
+    log(f"{card}: phase 17b musicgen-medium train "
+        f"{trained['musicgen-medium']['train_tok_per_s']:.1f} tok/s, "
+        f"{trained['musicgen-medium']['step_ms']:.1f} ms a step, peak "
+        f"{trained['musicgen-medium']['peak_gb']:.1f} GB (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+    for arch, seq, seed in TRAIN_FAMILIES:
+        t0 = time.perf_counter()
+        trained[arch] = phase_train_family(arch, seq, seed, runs)
+        log(f"{card}: phase 17c {arch} 4 layers 8x{seq} (phase wall "
+            f"{time.perf_counter() - t0:.1f} s)")
+    log(f"phase 17 wall {time.perf_counter() - t17:.1f} s")
+
+    # phase 18: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "
@@ -2539,9 +3085,23 @@ def main() -> None:
         "wkv_chunked": ("src/repro_torch/csrc/wkv.cu",
                         "src/repro/kernels/wkv.py:96 wkv_chunked_pallas "
                         "(_wkv_kernel :39)"),
+        "flash_attention_bwd": (
+            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "none (no TPU kernel): the backward of the jnp "
+            "src/repro/models/layers.py:152 attention, which XLA "
+            "differentiates"),
+        "wkv_chunked_bwd": (
+            "src/repro_torch/csrc/wkv_bwd.cu",
+            "none (no TPU kernel): the backward of the jnp "
+            "src/repro/models/rwkv6.py:112 _wkv_chunked, which XLA "
+            "differentiates"),
     })
     timed["flash_attention"] = lm_timed["flash_attention/prefill"]
     timed["wkv_chunked"] = lm_timed["wkv_chunked/heads T1000"]
+    timed["flash_attention_bwd"] = train_timed[
+        "flash_attention_bwd/minitron-4b"]
+    timed["wkv_chunked_bwd"] = train_timed["wkv_chunked_bwd/T1024"]
+    lm_timed.update(train_timed)
     kernels = []
     for name, (source, replaces) in meta.items():
         t = timed[name]
@@ -2573,7 +3133,8 @@ def main() -> None:
         if name == "ell_relax_round":
             entry["k3_route"] = t["route"]
             entry["shapes"] = t["shapes"]
-        if name in ("flash_attention", "wkv_chunked"):
+        if name in ("flash_attention", "wkv_chunked", "flash_attention_bwd",
+                    "wkv_chunked_bwd"):
             entry["tolerance"] = t["tolerance"]
             entry["shapes"] = {k.split("/", 1)[1]: {
                 f: v for f, v in row.items() if f in (
@@ -2586,6 +3147,13 @@ def main() -> None:
         arch: {k: r[k] for k in ("prefill_tok_per_s", "decode_tok_per_s",
                                  "prefill_s", "decode_s", "peak_gb")}
         for arch, r in served.items()}, "card": card}))
+    log(json.dumps({"training": {
+        "musicgen-medium": {k: trained["musicgen-medium"][k] for k in (
+            "train_tok_per_s", "step_ms", "peak_gb", "losses")},
+        **{arch: {"fp32_leaf_rel_l2_max": r["fp32_leaf_rel_l2_max"],
+                  "profile": r["profile"]}
+           for arch, r in trained.items() if arch != "musicgen-medium"}},
+        "card": card}))
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -9,13 +9,16 @@ stream are ``c_void_p``, every C entry returns ``cudaGetLastError()`` and
 ``check`` raises on a non-zero code.  A failed build raises; there is no
 fallback.
 
-``LAUNCHES`` counts, per kernel, the launches its wrapper made, and
+``LAUNCHES`` counts, per kernel, the calls its wrapper launched:
+``minplus_acc`` (K1), ``fw_pivot`` (K2), ``ell_relax_round`` (K3),
+``flash_attention`` (K4, any route), ``wkv_chunked`` (K5),
+``flash_attention_bwd`` (K4b) and ``wkv_chunked_bwd`` (K5b).
 ``SITE_LAUNCHES`` splits them by the caller that names itself (the blocked
-Floyd-Warshall panels, the full-sequence and the decode attention) and, for
-K3 and K4, by route (``ell_relax_round/route:slab``, ``route:l2``;
-``flash_attention/route:mma``, ``route:decode``, ``route:f32``); a run
-resets both with ``reset_launches`` and reads them afterwards to show which
-kernels the path went through.
+Floyd-Warshall panels, the full-sequence and the decode attention, and the
+attention backward's site) and, for K3 and K4, by route
+(``ell_relax_round/route:slab``, ``route:l2``; ``flash_attention/route:mma``,
+``route:decode``, ``route:f32``); a run resets both with ``reset_launches``
+and reads them afterwards to show which kernels the path went through.
 """
 from __future__ import annotations
 
@@ -56,13 +59,17 @@ _SIGNATURES = {
                             _P),
     "flash_decode": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, *(_L,) * 12, _P),
     "wkv_chunked": (*(_P,) * 8, _I, _I, _I, _I, *(_L,) * 17, _P),
+    # the two backward entries take their strides as a host array of int64
+    "flash_attention_bwd": (*(_P,) * 10, *(_I,) * 10, _F, _P, _P),
+    "wkv_chunked_bwd": (*(_P,) * 15, *(_I,) * 4, _P, _P),
 }
 
-# the kernels K1-K5; K4's three C entries (its routes) all count under
-# "flash_attention", split by route in SITE_LAUNCHES
+# the kernels K1-K5 and the backwards K4b, K5b; K4's three C entries (its
+# routes) all count under "flash_attention", split by route in
+# SITE_LAUNCHES; a call of K4b (three kernels) or K5b counts once
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("minplus_acc", "fw_pivot", "ell_relax_round", "flash_attention",
-     "wkv_chunked"), 0)
+     "wkv_chunked", "flash_attention_bwd", "wkv_chunked_bwd"), 0)
 SITE_LAUNCHES: collections.Counter[str] = collections.Counter()
 _BUILD_SECONDS: list[float] = []
 

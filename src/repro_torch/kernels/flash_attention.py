@@ -45,9 +45,19 @@ route "decode" skips the splits wholly left of the band.  Head dims up to
 masks its ragged edges itself, so nothing is padded, whatever ``Lq`` or
 ``Lk``), the plain version for CPU tensors.  There is no fallback between
 them, and the route never depends on a failure.
+
+The backward is K4b (``csrc/flash_attention_bwd.cu``), the FlashAttention-2
+algebra on the CUDA cores for both types, and ``flash_attention_bwd_plain``
+its torch version.  The reference has no TPU kernel for it: its models
+differentiate the jnp ``layers.attention`` (``_attention_banded`` for the
+window), which K4 stands in for, through XLA.  ``flash_attention`` is an
+autograd function when a gradient is to be taken; each row's log-sum-exp
+is recomputed in the backward, so the forward kernels write nothing more
+than the output.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -55,6 +65,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_plain", "flash_attention", "flash_route",
+           "flash_attention_bwd_plain", "flash_attention_bwd",
            "flash_split_partials_plain", "flash_split_combine_plain",
            "flash_attention_split_plain", "D_MAX", "DECODE_ROWS",
            "DECODE_SPLIT", "NEG"]
@@ -210,18 +221,9 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype,
                          "axis")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, scale: float | None = None,
-                    lk_valid: int | None = None, window: int = 0,
-                    site: str | None = None) -> torch.Tensor:
-    """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], float32
-    or bfloat16; the inputs may be strided views with a contiguous last
-    axis (a layer's slice of the KV cache goes in as it is).  CUDA tensors
-    launch K4 on the route ``flash_route`` picks, CPU tensors run
-    ``flash_attention_plain``.  Every launch counts once in
-    ``_build.LAUNCHES["flash_attention"]`` and once under
-    ``"flash_attention/route:<route>"`` in ``_build.SITE_LAUNCHES``;
-    ``site`` names the caller there too (as ``"flash_attention/<site>"``)."""
+def _args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          lk_valid: int | None, window: int) -> tuple[int, int]:
+    """Checks the shapes; returns (lk_valid, window) as ints."""
     b, lq, hq, d = q.shape
     if k.dim() != 4 or k.shape != v.shape or k.shape[0] != b \
             or k.shape[3] != d:
@@ -238,6 +240,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     window = int(window)
     if window < 0:
         raise ValueError(f"flash_attention: window {window} < 0")
+    return valid, window
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K4 forward, K4b backward (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, valid, window, site):
+        o = _flash_forward(q, k, v, causal, scale, valid, window, site)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = dict(causal=causal, scale=scale, lk_valid=valid,
+                        window=window, site=site)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, **ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, scale: float | None = None,
+                    lk_valid: int | None = None, window: int = 0,
+                    site: str | None = None) -> torch.Tensor:
+    """GQA attention, q [B, Lq, Hq, D] and k, v [B, Lk, Hkv, D], float32
+    or bfloat16; the inputs may be strided views with a contiguous last
+    axis (a layer's slice of the KV cache goes in as it is).  CUDA tensors
+    launch K4 on the route ``flash_route`` picks, CPU tensors run
+    ``flash_attention_plain``.  Every launch counts once in
+    ``_build.LAUNCHES["flash_attention"]`` and once under
+    ``"flash_attention/route:<route>"`` in ``_build.SITE_LAUNCHES``;
+    ``site`` names the caller there too (as ``"flash_attention/<site>"``).
+
+    Differentiable: when a gradient is to be taken through q, k or v, the
+    call goes through an autograd function whose backward is
+    ``flash_attention_bwd`` (K4b on the card, ``flash_attention_bwd_plain``
+    on the CPU), from the saved q, k, v and output."""
+    valid, window = _args(q, k, v, lk_valid, window)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, scale, valid, window,
+                                     site)
+    return _flash_forward(q, k, v, causal, scale, valid, window, site)
+
+
+def _flash_forward(q, k, v, causal, scale, valid, window, site):
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                      lk_valid=valid, window=window)
@@ -276,3 +327,106 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         _build.SITE_LAUNCHES[f"flash_attention/{site}"] += 1
     _build.check(code, f"flash_attention ({route})")
     return out
+
+
+# ---------------------------------------------------------------------------
+# K4b: the backward
+# ---------------------------------------------------------------------------
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              scale: float | None = None,
+                              lk_valid: int | None = None, window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain torch version of K4b: the gradients (dq, dk, dv) of
+    ``flash_attention_plain`` at (q, k, v), given its output ``o`` and the
+    output's cotangent ``do``, by the FlashAttention-2 algebra: P recomputed
+    from each row's log-sum-exp, D_i = rowsum(dO_i o O_i), dS = P o (dP -
+    D) with dP = dO V^T, dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO,
+    dK and dV summed over the g query heads of each KV head.  Float32
+    throughout, each result cast to its input's type; a row that sees no
+    key, and a key no row sees, gives zeros."""
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    valid = lk if lk_valid is None else lk_valid
+    sc = _scale(d, scale)
+    qf = q.float().reshape(b, lq, hkv, g, d)
+    kf, vf = k.float(), v.float()
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * sc
+    mask = _mask(lq, torch.arange(lk, device=q.device), valid, causal,
+                 window)
+    s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)   # a row that sees no key
+    den = torch.exp(s - m).sum(dim=-1, keepdim=True)
+    lse = m + torch.log(torch.where(den > 0, den, 1.0))
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dof = do.float().reshape(b, lq, hkv, g, d)
+    dsum = (dof * o.float().reshape(b, lq, hkv, g, d)).sum(-1)  # [b,q,h,g]
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * sc
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * sc
+    return (dq.reshape(b, lq, hq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, scale: float | None = None,
+                        lk_valid: int | None = None, window: int = 0,
+                        site: str | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` at (q, k, v) from its output
+    ``o`` and the cotangent ``do``, in q's type.  CUDA tensors launch K4b
+    (``csrc/flash_attention_bwd.cu``: three kernels, one for each row's
+    log-sum-exp and D, one over key tiles for dK and dV, one over query
+    tiles for dQ; no atomics), CPU tensors run
+    ``flash_attention_bwd_plain``.  Every call counts once in
+    ``_build.LAUNCHES["flash_attention_bwd"]`` (and under
+    ``"flash_attention_bwd/<site>"`` when ``site`` is given)."""
+    valid, window = _args(q, k, v, lk_valid, window)
+    if o.shape != q.shape or do.shape != q.shape:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be q's {tuple(q.shape)}")
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         scale=scale, lk_valid=valid,
+                                         window=window)
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"flash_attention_bwd: float32 or bfloat16 "
+                         f"required, got {q.dtype}")
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    if d > D_MAX:
+        raise ValueError(f"flash_attention_bwd: head dim {d} > {D_MAX}")
+    do = do.to(q.dtype)
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    for name, x in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        _check(name, x, q.dtype, q.device)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    # each row's log-sum-exp and D, rows (b, KV head, i * g + h)
+    lse = torch.empty(b * hq * lq, dtype=torch.float32, device=q.device)
+    dsum = torch.empty_like(lse)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
+    lib = _build.load()
+    code = lib.flash_attention_bwd(
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.data_ptr(),
+        k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), dsum.data_ptr(),
+        0 if q.dtype == torch.float32 else 1, b, lq, lk, valid, hq, hkv, d,
+        int(causal), window, _scale(d, scale), strides,
+        _build.stream_ptr(q.device))
+    _build.LAUNCHES["flash_attention_bwd"] += 1
+    if site is not None:
+        _build.SITE_LAUNCHES[f"flash_attention_bwd/{site}"] += 1
+    _build.check(code, "flash_attention_bwd")
+    return dq, dk, dv

@@ -23,16 +23,24 @@ step for step.
 
 ``wkv_chunked`` picks by device: the kernel for CUDA tensors, the plain
 version for CPU tensors.  There is no fallback between the two.
+
+The backward is K5b (``csrc/wkv_bwd.cu``) and ``wkv_chunked_bwd_plain`` its
+torch version.  The reference has no TPU kernel for it: its rwkv6 model
+differentiates the jnp ``_wkv_chunked``, which K5 stands in for, through
+XLA.  ``wkv_chunked`` is an autograd function when a gradient is to be
+taken.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from repro_torch.kernels import _build
 
-__all__ = ["CHUNK", "N_MAX", "wkv_chunked_plain", "wkv_chunked"]
+__all__ = ["CHUNK", "N_MAX", "wkv_chunked_plain", "wkv_chunked",
+           "wkv_chunked_bwd_plain", "wkv_chunked_bwd"]
 
 CHUNK = 32
 N_MAX = 64   # largest head size K5 takes
@@ -114,6 +122,33 @@ def _lane_strides(x: torch.Tensor) -> tuple[int, int, int]:
     return x.stride(0), x.stride(1), x.stride(2)
 
 
+def _check_all(r, k, v, log_w, s0) -> None:
+    lead = _lanes(r)
+    n = r.shape[-1]
+    for name, x in (("k", k), ("v", v), ("log_w", log_w)):
+        _check(name, x, tuple(r.shape), r.device)
+    if s0 is not None:
+        _check("s0", s0, lead + (n, n), r.device)
+
+
+class _WKV(torch.autograd.Function):
+    """K5 forward, K5b backward (their plain versions on CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, log_w, u, s0):
+        o, s = _wkv_forward(r, k, v, log_w, u, s0)
+        ctx.save_for_backward(r, k, v, log_w, u, s0)
+        ctx.set_materialize_grads(False)
+        return o, s
+
+    @staticmethod
+    def backward(ctx, do, ds):
+        r, k, v, log_w, u, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(r, dtype=torch.float32)
+        return wkv_chunked_bwd(r, k, v, log_w, u, s0, do, ds)
+
+
 def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 log_w: torch.Tensor, u: torch.Tensor,
                 s0: torch.Tensor | None = None
@@ -124,13 +159,23 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (the model passes its [B, T, H, n] projections permuted, no copy); on
     the card ``o`` takes r's memory layout.  ``u`` is [n] or one row per
     lane (see ``_bonus``).  CUDA tensors launch K5, CPU tensors run
-    ``wkv_chunked_plain``."""
+    ``wkv_chunked_plain``.
+
+    Differentiable: when a gradient is to be taken through any input, the
+    call goes through an autograd function whose backward is
+    ``wkv_chunked_bwd`` (K5b on the card, ``wkv_chunked_bwd_plain`` on the
+    CPU), which recomputes the chunk-start states from the saved inputs."""
+    _check_all(r, k, v, log_w, s0)
+    if torch.is_grad_enabled() and any(
+            x is not None and x.requires_grad
+            for x in (r, k, v, log_w, u, s0)):
+        return _WKV.apply(r, k, v, log_w, u, s0)
+    return _wkv_forward(r, k, v, log_w, u, s0)
+
+
+def _wkv_forward(r, k, v, log_w, u, s0):
     lead = _lanes(r)
     t, n = r.shape[-2:]
-    for name, x in (("k", k), ("v", v), ("log_w", log_w)):
-        _check(name, x, tuple(r.shape), r.device)
-    if s0 is not None:
-        _check("s0", s0, lead + (n, n), r.device)
     if not r.is_cuda:
         return wkv_chunked_plain(r, k, v, log_w, u, s0)
     if n > N_MAX:
@@ -159,3 +204,167 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _build.LAUNCHES["wkv_chunked"] += 1
     _build.check(code, "wkv_chunked")
     return o, s_out
+
+
+# ---------------------------------------------------------------------------
+# K5b: the backward
+# ---------------------------------------------------------------------------
+
+def _reduce_bonus(du: torch.Tensor, u: torch.Tensor,
+                  lead: tuple[int, ...]) -> torch.Tensor:
+    """Per-lane du [*lead, n] summed over the lanes ``u`` is shared by, to
+    ``u``'s shape (see ``_bonus``)."""
+    n = du.shape[-1]
+    if tuple(u.shape) == lead + (n,):
+        out = du
+    elif len(lead) == 2 and tuple(u.shape) == lead[1:] + (n,):
+        out = du.sum(dim=0)
+    else:
+        out = du.reshape(-1, n).sum(dim=0)
+    return out.to(u.dtype)
+
+
+def wkv_chunked_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          log_w: torch.Tensor, u: torch.Tensor,
+                          s0: torch.Tensor | None, do: torch.Tensor,
+                          ds: torch.Tensor | None = None) -> tuple:
+    """Plain torch version of K5b: the gradients of ``wkv_chunked_plain``
+    at (r, k, v, log_w, u, s0) given the cotangents ``do`` of ``o`` and
+    ``ds`` of the final state (zero when None): ``(dr, dk, dv, dlog_w, du,
+    ds0)``, ``du`` in u's shape and ``ds0`` None when ``s0`` is.
+
+    The chunk algebra run backward.  A forward sweep recomputes the
+    chunk-start states S_c; then, from the last chunk to the first, with
+    L the inclusive cumsum of log w in the chunk, E = L - log w, Λ = L_C,
+    r~ = r e^E, k~ = k e^-L, k^ = k e^(Λ-L), A = r~ k~^T (strictly lower)
+    and dS the cotangent of the chunk's end state:
+
+        dA = (dO V^T) strictly lower,  dv = A^T dO + diag dO + k^ dS
+        dr~ = dA k~ + dO S_c^T,  dk~ = dA^T r~,  dk^ = V dS^T
+        dr = dr~ e^E + (dO.v) u k,  dk = dk~ e^-L + dk^ e^(Λ-L) + (dO.v) u r
+        dlog_w_j = sum_{t>j} dr~ r~ - sum_{t>=j} dk~ k~ + sum_{t<j} dk^ k^
+                   + e^Λ rowsum(S_c o dS)
+        dS <- diag(e^Λ) dS + r~^T dO
+
+    (the last line carries dS to the previous chunk; dS after chunk 0 is
+    ds0).  Ragged T is padded as the forward pads it; the padded steps
+    have r = k = v = dO = 0 and add nothing."""
+    lead, (t, n) = _lanes(r), r.shape[-2:]
+    bh = math.prod(lead)
+    uu = _bonus(u, lead, n).reshape(bh, 1, n)
+    pad = (-t) % CHUNK
+    xs = [x.float().reshape(bh, t, n) for x in (r, k, v, log_w, do)]
+    if pad:
+        xs = [torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in xs]
+    rs, ks, vs, ws, dos = xs
+    s = (torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+         if s0 is None else s0.float().reshape(bh, n, n))
+    tri = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    starts = []
+    for c0 in range(0, t + pad, CHUNK):          # the chunk-start states
+        starts.append(s)
+        kk, vv, ww = (x[:, c0:c0 + CHUNK] for x in (ks, vs, ws))
+        lcw = torch.cumsum(ww, dim=1)
+        total = lcw[:, -1:]
+        s = s * torch.exp(total[:, 0])[..., None] + \
+            torch.einsum("btn,btm->bnm", kk * torch.exp(total - lcw), vv)
+    dstate = (torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+              if ds is None else ds.float().reshape(bh, n, n))
+    grads = {key: [] for key in ("r", "k", "v", "w")}
+    du = torch.zeros((bh, n), dtype=torch.float32, device=r.device)
+    for c in reversed(range(len(starts))):
+        c0 = c * CHUNK
+        rr, kk, vv, ww, dd = (x[:, c0:c0 + CHUNK] for x in xs)
+        sc = starts[c]
+        lcw = torch.cumsum(ww, dim=1)
+        total = lcw[:, -1:]
+        e_r, e_k, e_s = (torch.exp(lcw - ww), torch.exp(-lcw),
+                         torch.exp(total - lcw))
+        e_t = torch.exp(total[:, 0])                          # [BH, n]
+        r_t, k_t, k_s = rr * e_r, kk * e_k, kk * e_s
+        a = torch.where(tri, torch.einsum("btn,bin->bti", r_t, k_t), 0.0)
+        diag = torch.einsum("btn,btn->bt", rr * uu, kk)
+        da = torch.where(tri, torch.einsum("btm,bim->bti", dd, vv), 0.0)
+        ddiag = torch.einsum("btm,btm->bt", dd, vv)
+        dv = torch.einsum("bti,btm->bim", a, dd) + diag[..., None] * dd + \
+            torch.einsum("btn,bnm->btm", k_s, dstate)
+        dr_t = torch.einsum("bti,bin->btn", da, k_t) + \
+            torch.einsum("btm,bnm->btn", dd, sc)
+        dk_t = torch.einsum("bti,btn->bin", da, r_t)
+        dk_s = torch.einsum("btm,bnm->btn", vv, dstate)
+        g_r, g_k, g_s = dr_t * r_t, dk_t * k_t, dk_s * k_s
+        grads["r"].append(dr_t * e_r + ddiag[..., None] * uu * kk)
+        grads["k"].append(dk_t * e_k + dk_s * e_s + ddiag[..., None] * uu * rr)
+        grads["v"].append(dv)
+        suffix = torch.flip(torch.cumsum(torch.flip(g_r, [1]), 1), [1])
+        suffix_k = torch.flip(torch.cumsum(torch.flip(g_k, [1]), 1), [1])
+        state = e_t * (sc * dstate).sum(-1)                   # [BH, n]
+        grads["w"].append((suffix - g_r) - suffix_k
+                          + (torch.cumsum(g_s, 1) - g_s) + state[:, None])
+        du = du + torch.einsum("bt,btn->bn", ddiag, rr * kk)
+        dstate = dstate * e_t[..., None] + \
+            torch.einsum("btn,btm->bnm", r_t, dd)
+
+    def out(key, like):
+        g = torch.cat(grads[key][::-1], dim=1)[:, :t]
+        return g.reshape(like.shape).to(like.dtype)
+
+    du = _reduce_bonus(du.reshape(*lead, n), u, lead)
+    ds0 = None if s0 is None else dstate.reshape(s0.shape).to(s0.dtype)
+    return (out("r", r), out("k", k), out("v", v), out("w", log_w), du, ds0)
+
+
+def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    log_w: torch.Tensor, u: torch.Tensor,
+                    s0: torch.Tensor | None, do: torch.Tensor,
+                    ds: torch.Tensor | None = None) -> tuple:
+    """The gradients of ``wkv_chunked``: ``(dr, dk, dv, dlog_w, du, ds0)``
+    (see ``wkv_chunked_bwd_plain``).  CUDA tensors launch K5b
+    (``csrc/wkv_bwd.cu``: one block a lane, a forward sweep that writes the
+    chunk-start states to scratch the wrapper allocates, [lanes, ceil(T /
+    32), n, n] float32, then a reverse sweep; no atomics), CPU tensors run
+    ``wkv_chunked_bwd_plain``.  dr, dk, dv and dlog_w take their input's
+    layout; du is reduced to u's shape by a sum over the lanes that share
+    it.  Every call counts once in ``_build.LAUNCHES["wkv_chunked_bwd"]``."""
+    _check_all(r, k, v, log_w, s0)
+    _check("do", do, tuple(r.shape), r.device)
+    lead = _lanes(r)
+    t, n = r.shape[-2:]
+    if ds is not None:
+        _check("ds", ds, lead + (n, n), r.device)
+    if not r.is_cuda:
+        return wkv_chunked_bwd_plain(r, k, v, log_w, u, s0, do, ds)
+    if n > N_MAX:
+        raise ValueError(f"wkv_chunked_bwd: head size {n} > {N_MAX}")
+    uu = _bonus(u, lead, n)
+    if uu.stride(-1) != 1:
+        uu = uu.contiguous()
+    su = (uu.stride(0), uu.stride(1) if len(lead) == 2 else 0)
+    ins = [x.float() if x.stride(-1) == 1 else x.float().contiguous()
+           for x in (r, k, v, log_w, do)]
+    outs = [torch.empty_like(x) for x in ins[:4]]
+    lanes = math.prod(lead)
+    nb, nh = (lead[0], 1) if len(lead) == 1 else lead
+    scratch = torch.empty(lanes * -(-t // CHUNK) * n * n, dtype=torch.float32,
+                          device=r.device)
+    du = torch.empty((lanes, n), dtype=torch.float32, device=r.device)
+    s_in = s0.float().contiguous() if s0 is not None else None
+    ds_in = ds.float().contiguous() if ds is not None else None
+    ds0 = (torch.empty(lead + (n, n), dtype=torch.float32, device=r.device)
+           if s0 is not None else None)
+    strides = (ctypes.c_longlong * 29)(*(
+        s for x in (*ins, *outs) for s in _lane_strides(x)), *su)
+    lib = _build.load()
+    code = lib.wkv_chunked_bwd(
+        *(x.data_ptr() for x in outs), du.data_ptr(),
+        ds0.data_ptr() if ds0 is not None else None,
+        *(x.data_ptr() for x in ins), uu.data_ptr(),
+        s_in.data_ptr() if s_in is not None else None,
+        ds_in.data_ptr() if ds_in is not None else None, scratch.data_ptr(),
+        nb, nh, t, n, strides, _build.stream_ptr(r.device))
+    _build.LAUNCHES["wkv_chunked_bwd"] += 1
+    _build.check(code, "wkv_chunked_bwd")
+    dr, dk, dv, dw = (o.to(x.dtype) for o, x in zip(outs, (r, k, v, log_w)))
+    return (dr, dk, dv, dw, _reduce_bonus(du.reshape(*lead, n), u, lead),
+            None if ds0 is None else ds0.to(s0.dtype))

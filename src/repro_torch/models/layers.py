@@ -3,17 +3,34 @@
 The reference's ``shard`` hooks are dropped: this slice runs on one device.
 Attention goes through ``repro_torch.kernels.ops.flash_attention``: K4 on
 the card, its plain version on the CPU, with the local window of the hybrid
-family (``window > 0``) inside the kernel.
+family (``window > 0``) inside the kernel.  ``remat`` is the reference's
+``jax.checkpoint(..., nothing_saveable)`` around a layer.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
+from repro_torch import tree as tree_lib
 from repro_torch.kernels import ops
 
 __all__ = ["rms_norm", "dense", "swiglu", "rope", "m_rope", "apply_rope",
-           "attention"]
+           "attention", "remat"]
+
+
+def remat(fn, *args):
+    """``fn(*args)``, rematerialised when a gradient will be taken through
+    it (grad mode on and a tensor among ``args``, nested dicts and lists
+    included, that requires grad): only ``args`` are kept and ``fn`` runs
+    again in the backward (``torch.utils.checkpoint``, non-reentrant).
+    Otherwise, as when serving, a plain call."""
+    if torch.is_grad_enabled() and any(
+            isinstance(x, torch.Tensor) and x.requires_grad
+            for x in tree_lib.leaves(list(args))):
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, preserve_rng_state=False)
+    return fn(*args)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor,

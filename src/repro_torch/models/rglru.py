@@ -224,20 +224,27 @@ def _mlp(cfg: ModelConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
 
 def _layers(cfg: ModelConfig, params: dict, batch: dict, on_layer=None):
     """The embedded sequence through every block; ``on_layer(i, kind,
-    cache)`` receives each block's cache (rec: h, conv; attn: (k, v))."""
+    cache)`` receives each block's cache (rec: h, conv; attn: (k, v)).
+    Each layer is rematerialised when a gradient is taken
+    (``layers.remat``, the reference's per-layer ``jax.checkpoint``)."""
     x = tfm._embed(cfg, params, batch)
     sin, cos = layers.rope(torch.arange(x.shape[1], device=x.device),
                            cfg.head_dim_, cfg.rope_theta)
     for i, (kind, lw) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        if kind == "rec":
-            a, c = _rec_block(cfg, x, lw, None)
-        else:
-            a, c = tfm._attn_block(cfg, x, lw, sin, cos)
-        x = x + a
-        x = x + _mlp(cfg, x, lw)
+        x, c = layers.remat(_layer, cfg, kind, x, lw, sin, cos)
         if on_layer is not None:
             on_layer(i, kind, c)
     return x
+
+
+def _layer(cfg: ModelConfig, kind: str, x: torch.Tensor, lw: dict,
+           sin: torch.Tensor, cos: torch.Tensor):
+    if kind == "rec":
+        a, c = _rec_block(cfg, x, lw, None)
+    else:
+        a, c = tfm._attn_block(cfg, x, lw, sin, cos)
+    x = x + a
+    return x + _mlp(cfg, x, lw), c
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,

@@ -192,11 +192,13 @@ def _block(cfg, x, lw, cache):
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             collect_cache: bool = False, unembed: bool = True):
     """Returns (logits [B, S, Vp], aux_loss (0), per-layer caches stacked on
-    L | None).  With unembed=False, returns the final-norm hidden states."""
+    L | None).  With unembed=False, returns the final-norm hidden states.
+    Each layer is rematerialised when a gradient is taken
+    (``layers.remat``)."""
     x = tfm._embed(cfg, params, batch)
     caches = []
-    for i in range(cfg.num_layers):
-        x, c = _block(cfg, x, tfm.layer(params, i), None)
+    for lw in tfm.layers_of(params):
+        x, c = layers.remat(_block, cfg, x, lw, None)
         if collect_cache:
             caches.append(c)
     stacked = ({key: torch.stack([c[key] for c in caches])

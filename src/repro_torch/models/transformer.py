@@ -200,25 +200,40 @@ def _zero(x: torch.Tensor) -> torch.Tensor:
     return torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def layers_of(params: dict) -> list[dict]:
+    """Every layer's weights, from one ``unbind`` of each stacked tensor: in
+    the backward each stacked gradient is then assembled once, where
+    per-layer slices would each build a full-size zero tensor."""
+    per = {k: torch.unbind(w) for k, w in params["blocks"].items()}
+    return [{k: w[i] for k, w in per.items()}
+            for i in range(len(next(iter(per.values()))))]
+
+
 # --------------------------------------------------------------------------
-# full-sequence forward (prefill; training comes with its slice)
+# full-sequence forward (training and prefill)
 # --------------------------------------------------------------------------
+
+def _block(cfg: ModelConfig, x: torch.Tensor, lw: dict, sin: torch.Tensor,
+           cos: torch.Tensor):
+    a, kv = _attn_block(cfg, x, lw, sin, cos)
+    x = x + a
+    f, aux = _ffn_block(cfg, x, lw)
+    return x + f, aux, kv
+
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
             collect_kv: bool = False, unembed: bool = True):
     """Returns (logits [B, S, Vp], aux_loss, (k, v) [L,B,S,Hkv,Dh] | None).
     With unembed=False, returns the final-norm hidden states instead of
-    logits."""
+    logits.  Each layer is rematerialised when a gradient is taken
+    (``layers.remat``, the reference's ``jax.checkpoint`` of its scan
+    body)."""
     x = _embed(cfg, params, batch)
     sin, cos = _rope_for(cfg, batch, x.shape[1], x.device)
     ks, vs = [], []
     aux = _zero(x)
-    for i in range(cfg.num_layers):
-        lw = layer(params, i)
-        a, (k, v) = _attn_block(cfg, x, lw, sin, cos)
-        x = x + a
-        f, aux_i = _ffn_block(cfg, x, lw)
-        x = x + f
+    for lw in layers_of(params):
+        x, aux_i, (k, v) = layers.remat(_block, cfg, x, lw, sin, cos)
         aux = aux + aux_i
         if collect_kv:
             ks.append(k)

@@ -711,3 +711,177 @@ def test_cuda_serving_matches_cpu(cuda, arch):
         if i < 3:
             want, cache = cpu_model.decode_step(
                 params, cache, torch.from_numpy(toks[:, 45 + i:46 + i]))
+
+
+# ---------------------------------------------------------------------------
+# K4b and K5b: the backward kernels
+# ---------------------------------------------------------------------------
+
+def _close_grad(got, want, dtype, scale=None):
+    # float32: the same float32 algebra summed in another order, over up to
+    # Lq * g rows for dK and dV; bf16: both compute in float32 from the same
+    # bf16 inputs and round the result to bf16, so they may differ by one
+    # bf16 ulp (at most |x| / 128).  atol is relative to ``scale``: the
+    # gradient's own largest entry, or the call's largest entry where the
+    # caller says why: a gradient that is 0 in exact arithmetic (dQ and dK
+    # when each row sees only its own key) is rounding noise of the terms
+    # that cancel, on the scale of the others
+    if scale is None:
+        scale = float(want.float().abs().max())
+    atol, rtol = ((1e-4, 1e-4) if dtype == torch.float32 else (1e-3, 8e-3))
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=atol * max(scale, 1e-30), rtol=rtol)
+
+
+def _scale(grads):
+    return max(float(g.float().abs().max()) for g in grads if g is not None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,causal,lk_valid,window", [
+    (2, 200, 200, 6, 2, 128, True, None, 0),    # ragged prefill, g = 3
+    (1, 100, 160, 4, 1, 64, True, 150, 0),      # Lq < lk_valid < Lk, MQA
+    (1, 96, 160, 4, 4, 64, False, 150, 0),      # not causal, padded keys
+    (1, 128, 128, 2, 1, 64, True, 64, 0),       # first rows see no key
+    (2, 300, 300, 10, 1, 256, True, None, 100),  # D = 256 with a window
+    (1, 200, 250, 4, 2, 256, True, 230, 37),    # window, ragged, D = 256
+    (1, 50, 50, 4, 1, 12, True, None, 0),       # d = 12
+    (1, 64, 64, 2, 1, 250, True, None, 20),     # d = 250
+    (1, 160, 160, 2, 2, 136, True, 150, 50),    # d = 136, lk_valid < Lk
+    (2, 5, 40, 3, 1, 64, True, None, 0),        # 15 rows
+    (1, 130, 130, 2, 1, 64, True, None, 1),     # window 1
+])
+def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, b, lq, lk, hq,
+                                                hkv, d, causal, lk_valid,
+                                                window):
+    """K4b against ``flash_attention_bwd_plain`` on the same inputs (the
+    output from the plain forward), one call counted."""
+    q = _normal(31, b, lq, hq, d).to(cuda, dtype)
+    k = _normal(32, b, lk, hkv, d).to(cuda, dtype)
+    v = _normal(33, b, lk, hkv, d).to(cuda, dtype)
+    do = _normal(34, b, lq, hq, d).to(cuda, dtype)
+    kw = dict(causal=causal, lk_valid=lk_valid, window=window)
+    o = p_flash.flash_attention_plain(q, k, v, **kw)
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    got = p_flash.flash_attention_bwd(q, k, v, o, do, site="test", **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    want = p_flash.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    # window 1: dQ and dK are 0 in exact arithmetic
+    scale = _scale(want) if window == 1 else None
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and torch.isfinite(g).all()
+        _close_grad(g, w, dtype, scale)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_bwd_reads_strided_views(cuda):
+    """q a view of a wider projection, k and v slices of a stacked
+    buffer, dO transposed: the same as on contiguous copies."""
+    dt = torch.bfloat16
+    buf = _normal(35, 3, 2, 80, 2, 64).to(cuda, dt)
+    proj = _normal(36, 2, 70, 2 * 6 * 64).to(cuda, dt)
+    q = proj[..., :6 * 64].view(2, 70, 6, 64)
+    k, v = buf[1, :, :75], buf[2, :, :75]
+    do = _normal(37, 6, 2, 70, 64).to(cuda, dt).permute(1, 2, 0, 3)
+    o = p_flash.flash_attention_plain(q, k, v, lk_valid=72)
+    got = p_flash.flash_attention_bwd(q, k, v, o, do, lk_valid=72)
+    want = p_flash.flash_attention_bwd_plain(
+        *(x.contiguous() for x in (q, k, v, o, do)), lk_valid=72)
+    for g, w in zip(got, want):
+        _close_grad(g, w, dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_attention_gradients_reach_q_k_v(cuda, dtype):
+    """The fault K4b closes: K4's output was filled through ctypes with no
+    autograd node, so a backward on the card gave q, k and v no gradient.
+    Through the wrapper they now get K4b's, equal to the plain path's
+    autograd gradients."""
+    q = _normal(40, 2, 90, 6, 64).to(cuda, dtype)
+    k = _normal(41, 2, 90, 2, 64).to(cuda, dtype)
+    v = _normal(42, 2, 90, 2, 64).to(cuda, dtype)
+    w = _normal(43, 2, 90, 6, 64).to(cuda, dtype)
+    ins = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = _build.LAUNCHES["flash_attention_bwd"]
+    o = p_flash.flash_attention(*ins, window=40)
+    assert o.grad_fn is not None
+    (o.float() * w.float()).sum().backward()
+    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    (p_flash.flash_attention_plain(*plain, window=40).float()
+     * w.float()).sum().backward()
+    # float32: the same algebra, each gradient on its own scale.  bf16: the
+    # plain path's autograd rounds P, dP and dS to bf16 where K4 and K4b
+    # keep them in float32, so the two differ by bf16 rounding of terms on
+    # the scale of the call's largest gradient, not of each gradient's own
+    scale = _scale([x.grad for x in plain]) if dtype == torch.bfloat16 \
+        else None
+    for a, b in zip(ins, plain):
+        assert a.grad is not None and float(a.grad.float().abs().max()) > 0
+        _close_grad(a.grad, b.grad, dtype, scale)
+
+
+def _wkv_views(seed, b, t, h, n, cuda):
+    """[B, T, H, n] projections as [B, H, T, n] views (the model's layout)."""
+    out = [_normal(seed + i, b, t, h, n).to(cuda).permute(0, 2, 1, 3)
+           for i in range(3)]
+    w = -torch.clamp(torch.exp(_normal(seed + 3, b, t, h, n)), 1e-6, 2.5)
+    return (*out, w.to(cuda).permute(0, 2, 1, 3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,t,n,with_state,with_ds", [
+    (1, 2, 64, 16, False, False),
+    (2, 3, 70, 32, True, True),       # ragged T
+    (1, 1, 1, 8, True, True),         # one step
+    (2, 2, 33, 12, False, True),      # n = 12
+    (8, 8, 1000, 64, True, False),    # ragged, the model's head size
+])
+def test_cuda_wkv_bwd_matches_plain(cuda, b, h, t, n, with_state, with_ds):
+    """K5b against ``wkv_chunked_bwd_plain`` on [B, H, T, n] views with a
+    per-head bonus: dr, dk, dv, dlog_w in the inputs' layout, du summed to
+    [H, n], ds0; one call counted."""
+    r, k, v, log_w = _wkv_views(50, b, t, h, n, cuda)
+    u = _normal(55, h, n).to(cuda) * 0.5
+    s0 = _normal(56, b, h, n, n).to(cuda) * 0.3 if with_state else None
+    do = _normal(57, b, h, t, n).to(cuda)
+    ds = _normal(58, b, h, n, n).to(cuda) if with_ds else None
+    before = _build.LAUNCHES["wkv_chunked_bwd"]
+    got = p_wkv.wkv_chunked_bwd(r, k, v, log_w, u, s0, do, ds)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["wkv_chunked_bwd"] == before + 1
+    want = p_wkv.wkv_chunked_bwd_plain(r, k, v, log_w, u, s0, do, ds)
+    assert (got[5] is None) == (s0 is None)
+    assert got[0].stride() == r.stride() and got[4].shape == (h, n)
+    for g, w in zip(got, want):
+        if w is None:
+            continue
+        assert torch.isfinite(g).all()
+        # the chunk algebra in float32 summed in another order; exponents up
+        # to +-80 in a chunk scale the rounding of exp (K5's own tolerance,
+        # relative to the gradient's largest entry)
+        _close_grad(g, w, torch.float32)
+
+
+@pytest.mark.cuda
+def test_cuda_wkv_gradients_reach_r_k_v_log_w(cuda):
+    """The fault K5b closes, as for K4: through the wrapper on the card r,
+    k, v, log_w and u get K5b's gradients, equal to the plain path's
+    autograd."""
+    base = _wkv_views(60, 2, 45, 3, 16, cuda)
+    u0 = _normal(64, 3, 16).to(cuda) * 0.5
+    w = _normal(65, 2, 3, 45, 16).to(cuda)
+    ins = [x.detach().clone().requires_grad_(True) for x in (*base, u0)]
+    plain = [x.detach().clone().requires_grad_(True) for x in (*base, u0)]
+    before = _build.LAUNCHES["wkv_chunked_bwd"]
+    o, _ = p_wkv.wkv_chunked(*ins)
+    assert o.grad_fn is not None
+    (o * w).sum().backward()
+    assert _build.LAUNCHES["wkv_chunked_bwd"] == before + 1
+    (p_wkv.wkv_chunked_plain(*plain)[0] * w).sum().backward()
+    for a, b in zip(ins, plain):
+        assert a.grad is not None and float(a.grad.abs().max()) > 0
+        _close_grad(a.grad, b.grad, torch.float32)

@@ -121,18 +121,24 @@ def test_kernel_sources_and_bindings_agree():
     names = {p.name for p in _build.SOURCES}
     assert names == {"minplus.cu", "fw_pivot.cu", "ell.cu",
                      "flash_attention.cu", "flash_attention_mma.cu",
-                     "flash_decode.cu", "wkv.cu"}
+                     "flash_decode.cu", "wkv.cu", "flash_attention_bwd.cu",
+                     "wkv_bwd.cu"}
     text = "".join(p.read_text() for p in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry
     for src in _build.SOURCES:
-        # every source says which TPU kernel it replaces and what bounds it
+        # every source says which TPU kernel it replaces (the two backwards:
+        # none, the reference's XLA differentiates its jnp functions) and
+        # what bounds it
         head = src.read_text()[:3000]
-        assert "Replaces the TPU kernel" in head, src.name
+        backward = src.name in ("flash_attention_bwd.cu", "wkv_bwd.cu")
+        assert ("Replaces no TPU kernel" if backward
+                else "Replaces the TPU kernel") in head, src.name
         assert "bounds it on Hopper" in head, src.name
     assert set(_build.LAUNCHES) == {"minplus_acc", "fw_pivot",
                                     "ell_relax_round", "flash_attention",
-                                    "wkv_chunked"}
+                                    "wkv_chunked", "flash_attention_bwd",
+                                    "wkv_chunked_bwd"}
     assert _build.BUILD_DIR.relative_to(ROOT) == pathlib.Path("build/kernels")
     assert "build/" in (ROOT / ".gitignore").read_text().split()
 
@@ -154,7 +160,8 @@ def test_importing_lm_modules_builds_nothing():
     code = ("import sys, repro_torch.kernels.flash_attention, "
             "repro_torch.kernels.wkv, repro_torch.models, "
             "repro_torch.models.rwkv6, repro_torch.configs, "
-            "repro_torch.launch.serve\n"
+            "repro_torch.launch.serve, repro_torch.launch.train, "
+            "repro_torch.optim, repro_torch.data, repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro', 'triton'))\n"
             "assert not bad, bad\n"

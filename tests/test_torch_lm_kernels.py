@@ -10,6 +10,7 @@ are made with numpy from explicit seeds and handed to both packages.  The
 CUDA kernels themselves are held against these plain versions on the card
 by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -369,3 +370,196 @@ def test_cpu_tensors_never_launch_lm_kernels():
     assert "flash_attention/full" not in _build.SITE_LAUNCHES
     assert not any(key.startswith("flash_attention/route:")
                    for key in _build.SITE_LAUNCHES)
+
+
+# ---------------------------------------------------------------------------
+# K4b and K5b: the backward algebra (plain versions) on the CPU
+# ---------------------------------------------------------------------------
+
+# float32 both sides, summed in another order: relative to each gradient's
+# largest entry, 1e-5 against torch autograd of the plain forward (the same
+# softmax and chunk algebra), 1e-4 against jax.vjp of the reference's jnp
+# functions (another framework's sums, as the forward tolerance above)
+BWD_AUTOGRAD_REL, BWD_JAX_REL = 1e-5, 1e-4
+
+
+def _close_rel(got, want, rel, what):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    want = np.asarray(want)
+    scale = float(np.abs(want).max(initial=0.0))
+    np.testing.assert_allclose(got, want, rtol=rel, atol=rel * scale + 1e-30,
+                               err_msg=what)
+
+
+FLASH_BWD_CASES = [
+    # b, lq, lk, hq, hkv, d, causal, lk_valid, window
+    (2, 24, 24, 4, 2, 16, True, None, 0),       # causal GQA
+    (1, 24, 40, 6, 2, 16, True, 30, 0),         # Lq < lk_valid < Lk
+    (1, 40, 40, 2, 1, 16, True, 20, 0),         # rows that see no key
+    (1, 37, 37, 4, 1, 32, True, None, 8),       # local window
+    (1, 20, 20, 2, 1, 256, True, None, 0),      # D = 256
+    (2, 16, 24, 4, 4, 16, False, None, 0),      # not causal
+]
+
+
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,causal,lk_valid,window",
+                         FLASH_BWD_CASES)
+def test_flash_bwd_plain_matches_autograd(b, lq, lk, hq, hkv, d, causal,
+                                          lk_valid, window):
+    q, k, v = (_t(x).requires_grad_(True)
+               for x in _qkv(lq + d, b, lq, lk, hq, hkv, d))
+    kw = dict(causal=causal, lk_valid=lk_valid, window=window)
+    o = p_flash.flash_attention_plain(q, k, v, **kw)
+    do = _t(_normal(7, *o.shape))
+    want = torch.autograd.grad(o, (q, k, v), do)
+    got = p_flash.flash_attention_bwd_plain(q.detach(), k.detach(),
+                                            v.detach(), o.detach(), do, **kw)
+    for name, g, w in zip("qkv", got, want):
+        _close_rel(g, w, BWD_AUTOGRAD_REL, f"d{name}")
+    if lk_valid is not None and lk_valid < lq:          # unseeing rows
+        assert float(got[0][:, :lq - lk_valid].abs().max()) == 0.0
+    if lk_valid is not None and lk_valid < lk:          # keys past lk_valid
+        assert float(got[1][:, lk_valid:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("lq,hq,hkv,d,window,block", [
+    (24, 4, 2, 16, 0, 8),        # causal GQA, blockwise
+    (37, 4, 1, 16, 8, 16),       # window: the reference's banded branch
+    (20, 2, 1, 256, 0, 8),       # D = 256
+    (21, 10, 1, 32, 9, 32),      # window, g = 10, one block
+])
+def test_flash_bwd_plain_matches_reference_vjp(lq, hq, hkv, d, window,
+                                               block):
+    """The gradients of the reference's jnp attention (the function K4
+    stands in for in its models), by jax.vjp."""
+    q, k, v = _qkv(3 * lq + d, 2, lq, lq, hq, hkv, d)
+    do = _normal(11, 2, lq, hq, d)
+
+    def ref(q_, k_, v_):
+        return r_layers.attention(q_, k_, v_, causal=True, window=window,
+                                  block=block)
+
+    o, vjp = jax.vjp(ref, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    got = p_flash.flash_attention_bwd_plain(
+        *map(_t, (q, k, v)), _t(np.array(o)), _t(do), causal=True,
+        window=window)
+    for name, g, w in zip("qkv", got, want):
+        _close_rel(g, w, BWD_JAX_REL, f"d{name}")
+
+
+def test_flash_attention_backward_runs_the_plain_backward_on_cpu(
+        monkeypatch):
+    """A gradient through the wrapper goes through the autograd function,
+    whose backward on CPU tensors is ``flash_attention_bwd_plain``; no
+    kernel launches."""
+    calls = []
+    plain = p_flash.flash_attention_bwd_plain
+
+    def spy(*args, **kw):
+        calls.append(kw)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(p_flash, "flash_attention_bwd_plain", spy)
+    before = dict(_build.LAUNCHES)
+    q, k, v = (_t(x).requires_grad_(True)
+               for x in _qkv(5, 1, 12, 12, 4, 2, 16))
+    o = p_ops.flash_attention(q, k, v, window=5, site="full")
+    assert o.grad_fn is not None
+    o.square().sum().backward()
+    assert len(calls) == 1 and calls[0]["window"] == 5
+    q2, k2, v2 = (x.detach().requires_grad_(True) for x in (q, k, v))
+    p_flash.flash_attention_plain(q2, k2, v2, window=5).square().sum() \
+        .backward()
+    for a, b in ((q, q2), (k, k2), (v, v2)):
+        _close_rel(a.grad, b.grad.numpy(), BWD_AUTOGRAD_REL, "grad")
+    assert _build.LAUNCHES == before
+
+
+def _wkv_grad_inputs(seed, lead, t, n, u_shape, with_state):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.standard_normal(lead + (t, n)).astype(np.float32)
+               for _ in range(3))
+    log_w = -np.clip(np.exp(rng.standard_normal(lead + (t, n))), 1e-6,
+                     2.5).astype(np.float32)
+    u = (rng.standard_normal(u_shape) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal(lead + (n, n)).astype(np.float32) * 0.3
+          if with_state else None)
+    return r, k, v, log_w, u, s0
+
+
+@pytest.mark.parametrize("lead,t,n,u_kind,with_state", [
+    ((2,), 64, 8, "shared", False),
+    ((3,), 45, 16, "lane", True),        # ragged T, a state in
+    ((2, 3), 33, 8, "head", True),       # [B, H, T, n], u per head
+    ((1, 2), 1, 8, "shared", True),      # one step
+])
+def test_wkv_bwd_plain_matches_autograd(lead, t, n, u_kind, with_state):
+    u_shape = {"shared": (n,), "lane": lead + (n,),
+               "head": lead[1:] + (n,)}[u_kind]
+    arrays = _wkv_grad_inputs(t + n, lead, t, n, u_shape, with_state)
+    ins = [None if x is None else _t(x).requires_grad_(True) for x in arrays]
+    o, s = p_wkv.wkv_chunked_plain(*ins)
+    do = _t(_normal(3, *o.shape))
+    ds = _t(_normal(4, *s.shape))
+    live = [x for x in ins if x is not None]
+    want = torch.autograd.grad((o, s), live, (do, ds))
+    got = p_wkv.wkv_chunked_bwd_plain(*(None if x is None else x.detach()
+                                        for x in ins), do, ds)
+    assert (got[5] is None) == (not with_state)
+    assert tuple(got[4].shape) == u_shape
+    for name, g, w in zip(("r", "k", "v", "log_w", "u", "s0"),
+                          [x for x in got if x is not None], want):
+        _close_rel(g, w, BWD_AUTOGRAD_REL, f"d{name}")
+
+
+@pytest.mark.parametrize("t", [64, 45])
+def test_wkv_bwd_plain_matches_reference_vjp(t):
+    """The gradients of the reference's jnp ``rwkv6._wkv_chunked`` (the
+    function K5 stands in for; a ragged T padded as its ``_time_mix``
+    pads it) by jax.vjp, through the port's ``rwkv6._wkv_chunked`` on
+    [B, T, H, n] with u [H, n] and a non-zero s0."""
+    b, h, n = 2, 3, 8
+    rng = np.random.default_rng(t)
+    r, k, v = (rng.standard_normal((b, t, h, n)).astype(np.float32)
+               for _ in range(3))
+    log_w = -np.clip(np.exp(rng.standard_normal((b, t, h, n))), 1e-6,
+                     2.5).astype(np.float32)
+    u = rng.standard_normal((h, n)).astype(np.float32)
+    s0 = rng.standard_normal((b, h, n, n)).astype(np.float32) * 0.3
+    do = _normal(5, b, t, h, n)
+    ds = _normal(6, b, h, n, n)
+    pad = (-t) % p_wkv.CHUNK
+
+    def ref(r_, k_, v_, w_, u_, s_):
+        lay = [jnp.pad(x, ((0, 0), (0, pad), (0, 0), (0, 0)))
+               for x in (r_, k_, v_, w_)]
+        o, s = r_rwkv6._wkv_chunked(*lay, u_, s_)
+        return o[:, :t], s
+
+    _, vjp = jax.vjp(ref, *map(jnp.asarray, (r, k, v, log_w, u, s0)))
+    want = vjp((jnp.asarray(do), jnp.asarray(ds)))
+    ins = [_t(x).requires_grad_(True) for x in (r, k, v, log_w, u, s0)]
+    o, s = p_rwkv6._wkv_chunked(*ins)
+    got = torch.autograd.grad((o, s), ins, (_t(do), _t(ds)))
+    for name, g, w in zip(("r", "k", "v", "log_w", "u", "s0"), got, want):
+        _close_rel(g, w, BWD_JAX_REL, f"d{name}")
+
+
+def test_wkv_backward_runs_the_plain_backward_on_cpu(monkeypatch):
+    calls = []
+    plain = p_wkv.wkv_chunked_bwd_plain
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return plain(*args, **kw)
+
+    monkeypatch.setattr(p_wkv, "wkv_chunked_bwd_plain", spy)
+    before = dict(_build.LAUNCHES)
+    ins = [_t(x).requires_grad_(True) for x in _wkv_inputs(8, 2, 40, 8)]
+    o, s = p_ops.wkv_chunked(*ins)
+    assert o.grad_fn is not None
+    o.sum().backward()
+    assert calls == [torch.Size([2, 40, 8])]
+    assert all(x.grad is not None for x in ins)
+    assert _build.LAUNCHES == before
