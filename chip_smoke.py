@@ -147,17 +147,22 @@ Phases (any failure exits non-zero; no phase catches and continues):
 17. training — (a) K4b ``flash_attention_bwd`` at the train shapes of
    minitron-4b ([8,1024,24/8,128] bf16), musicgen-medium ([8,1024,24/24,64]
    bf16) and recurrentgemma-2b ([8,3000,10/1,256] bf16, window 2048), in
-   float32 at minitron-4b's, and untimed at recurrentgemma-2b's in float32
-   and on a ragged float32 case (Lq != Lk, lk_valid < Lk, a window), and
-   K5b ``wkv_chunked_bwd`` at [8, T, 64,
+   float32 at minitron-4b's and recurrentgemma-2b's and on a ragged case
+   (Lq != Lk, lk_valid < Lk, a window), and untimed on the ragged case in
+   bf16 and at a padded head dim (D = 96); bf16 on route "mma", float32 on
+   "f32" (by the site counter), each twice with the same bits, route
+   "mma" also against the plain version of its own rounding; and K5b
+   ``wkv_chunked_bwd`` at [8, T, 64,
    64] float32 as [B, H, T, n] views (T = 1024 and 1000, s0 and a final
    state cotangent), each against its plain backward on the card and timed
-   beside its bound (K4b also beside SDPA's backward); (b) musicgen-medium
+   beside its bound (K4b also beside SDPA's backward, and in bf16 beside
+   the CUDA-core kernel on the same inputs); (b) musicgen-medium
    trained at full width and depth through
    ``repro_torch.launch.train.main`` (6 steps of 8 x 1024 tokens): finite
    losses and grad norms, every leaf moved, 48 K4 launches a step plus 48
    recomputed under remat, 48 K4b calls a step, no plain attention or
-   backward, train tokens/s over steps 3-6 and peak device memory; (c)
+   backward, every K4b call on route "mma", train tokens/s over steps 3-6
+   and peak device memory; (c)
    minitron-4b (8 x 1024), rwkv6-7b (8 x 1024) and recurrentgemma-2b (8 x
    3000) at full width and 4 layers: the first step's loss and every leaf's
    gradient against the plain path (plain forward and backward) and the
@@ -1769,7 +1774,8 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
 def no_plain_kernels(kfa, kwkv):
     """Fail the block if a plain version of K4, K4b, K5 or K5b ran (the
     wrappers take them only for CPU tensors)."""
-    names = {kfa: ("flash_attention_plain", "flash_attention_bwd_plain"),
+    names = {kfa: ("flash_attention_plain", "flash_attention_bwd_plain",
+                   "flash_attention_bwd_mma_plain"),
              kwkv: ("wkv_chunked_plain", "wkv_chunked_bwd_plain")}
     saved, calls = [], []
     for mod, fns in names.items():
@@ -2424,10 +2430,11 @@ def phase_family(phase: str, arch: str, positions: int, seed: int,
 # ---------------------------------------------------------------------------
 
 # K4b against its plain backward: (key, label, [b, lq, lk, hq, hkv, d],
-# dtype, lk_valid, window, timed).  The bf16 rows are the train shapes of
-# minitron-4b, musicgen-medium and recurrentgemma-2b (past its window); the
-# float32 rows are those of the 4-layer float32 checks (minitron-4b's timed,
-# recurrentgemma-2b's D = 256 band untimed); the ragged row is untimed
+# dtype, lk_valid, window, timed).  The timed bf16 rows are the train shapes
+# of minitron-4b, musicgen-medium and recurrentgemma-2b (past its window);
+# the float32 rows are those of the 4-layer float32 checks and a ragged
+# case (Lq != Lk, lk_valid < Lk, a window); untimed, the ragged case in
+# bf16 and a head dim that route "mma" pads (96 to 128)
 K4B_SHAPES = (
     ("minitron-4b", "[8,1024,24/8,128] bf16 causal",
      (8, 1024, 1024, 24, 8, 128), torch.bfloat16, None, 0, True),
@@ -2438,24 +2445,39 @@ K4B_SHAPES = (
     ("minitron-4b f32", "[8,1024,24/8,128] f32 causal",
      (8, 1024, 1024, 24, 8, 128), torch.float32, None, 0, True),
     ("recurrentgemma-2b f32", "[8,3000,10/1,256] f32 causal, window 2048",
-     (8, 3000, 3000, 10, 1, 256), torch.float32, None, 2048, False),
+     (8, 3000, 3000, 10, 1, 256), torch.float32, None, 2048, True),
     ("ragged f32", "[2,300/400,8/2,128] f32, lk_valid 350, window 100",
-     (2, 300, 400, 8, 2, 128), torch.float32, 350, 100, False),
+     (2, 300, 400, 8, 2, 128), torch.float32, 350, 100, True),
+    ("ragged bf16", "[2,300/400,8/2,128] bf16, lk_valid 350, window 100",
+     (2, 300, 400, 8, 2, 128), torch.bfloat16, 350, 100, False),
+    ("padded-D bf16", "[2,500,12/4,96] bf16 causal",
+     (2, 500, 500, 12, 4, 96), torch.bfloat16, None, 0, False),
 )
+K4B_SOURCES = {"mma": "src/repro_torch/csrc/flash_attention_bwd_mma.cu",
+               "f32": "src/repro_torch/csrc/flash_attention_bwd.cu"}
 # gradients against the plain backward on the same inputs, atol relative to
 # each gradient's own largest entry: float32 is the same algebra summed in
 # another order (over up to Lq g rows for dK and dV); bf16 rounds float32
 # results to bf16 in both, one bf16 ulp apart at most (|x| / 128)
 K4B_TOL = {torch.bfloat16: (1e-3, 8e-3), torch.float32: (1e-4, 1e-4)}
+# route "mma" against ``flash_attention_bwd_mma_plain``, which rounds P and
+# dS as the kernel does: the float32 results differ in the order of
+# additions (and exp2 against exp) only, so the bf16 outputs differ by at
+# most one bf16 ulp (<= 2^-7 |x|), plus 1e-4 of the gradient's largest
+# entry for the float32 differences (K4B_TOL's atol is 1e-3)
+K4B_MMA_TOL = (1e-4, 2.0 ** -7)
 # K5b: the chunk algebra in float32 summed in another order; exponents up to
 # +-80 in a chunk scale the rounding of exp (K5's tolerance, relative to
 # each gradient's largest entry)
 K5B_TOL = (1e-4, 1e-4)
 K5B_CHUNK = 32
-# timed calls a batch (of TIMING_RUNS elsewhere): each backward call takes
-# 4.8-134 ms, so a batch of 5 lasts 24 ms or more, far above the events'
-# resolution and behind the same device sleep; 30 would add about a minute
+# timed calls a batch (of TIMING_RUNS elsewhere) for the calls of over 1e10
+# flops: each takes 1.1-140 ms, so a batch of 5 lasts 5.5 ms or more, far
+# above the events' resolution and behind the same device sleep; 30 would
+# add about a minute.  Lighter calls (the ragged row, 0.1-0.6 ms with
+# SDPA's) take TIMING_RUNS.
 PHASE17_RUNS = 5
+PHASE17_HEAVY_FLOPS = 1e10
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 6
 # phase 17c: (architecture, sequence length, seed), full width, 4 layers
 TRAIN_FAMILIES = (("minitron-4b", 1024, 11), ("rwkv6-7b", 1024, 12),
@@ -2543,7 +2565,9 @@ def wkv_bwd_terms(lanes: int, t: int, n: int) -> tuple[float, float]:
 
 def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
     """17a: K4b and K5b against their plain backwards on the card, timed
-    beside their bounds (and, for K4b, SDPA's backward)."""
+    beside their bounds (and, for K4b, SDPA's backward).  K4b on its route
+    (by the site counter), twice on the same inputs with the same bits, and
+    route "mma" also against the plain version of its own rounding."""
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -2561,16 +2585,36 @@ def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
         valid = lk if valid is None else valid
         kw = dict(causal=True, lk_valid=valid, window=window)
         o = kfa.flash_attention(q, k, v, **kw)
-        before = _build.LAUNCHES["flash_attention_bwd"]
+        route = kfa.flash_bwd_route(dtype)
+        site = f"flash_attention_bwd/route:{route}"
+        before = (_build.LAUNCHES["flash_attention_bwd"],
+                  _build.SITE_LAUNCHES[site])
         got = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
-        if _build.LAUNCHES["flash_attention_bwd"] != before + 1:
-            raise SystemExit(f"chip_smoke: K4b {key} did not count its call")
+        if (_build.LAUNCHES["flash_attention_bwd"],
+                _build.SITE_LAUNCHES[site]) != (before[0] + 1, before[1] + 1):
+            raise SystemExit(f"chip_smoke: K4b {key} did not count its call "
+                             f"on route {route}")
+        again = kfa.flash_attention_bwd(q, k, v, o, do, **kw)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise SystemExit(f"chip_smoke: K4b {key}: two calls on the same "
+                             "inputs gave different bits")
+        del again
         want = kfa.flash_attention_bwd_plain(q, k, v, o, do, **kw)
         err = close_scaled(f"K4b {key}", got, want, K4B_TOL[dtype])
         row = {"kernel": "flash_attention_bwd", "shape": label,
+               "route": route, "source": K4B_SOURCES[route],
                "max_abs_err": err, "tolerance": K4B_TOL[dtype],
-               "rel_l2_dq_dk_dv": grad_rel_l2(got, want), "timed": timed}
-        del got, want
+               "rel_l2_dq_dk_dv": grad_rel_l2(got, want), "timed": timed,
+               "same_bits_twice": True}
+        del want
+        if route == "mma":
+            emu = kfa.flash_attention_bwd_mma_plain(q, k, v, o, do, **kw)
+            row.update(max_abs_err_vs_own_rounding=close_scaled(
+                f"K4b {key} (against its own rounding)", got, emu,
+                K4B_MMA_TOL), tolerance_vs_own_rounding=K4B_MMA_TOL)
+            del emu
+        del got
         if timed:
             es = q.element_size()
             flops = 10.0 * d * visible_pairs(lq, valid, window) * hq * b
@@ -2578,15 +2622,15 @@ def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
             rate = BF16_FLOP_PER_S if dtype == torch.bfloat16 else \
                 FP32_FLOP_PER_S
             bnd, kind = flop_bound_ms(flops, rate, nbytes)
+            runs = (PHASE17_RUNS if flops > PHASE17_HEAVY_FLOPS
+                    else TIMING_RUNS)
             row.update(
                 ms=time_ms(lambda: kfa.flash_attention_bwd(q, k, v, o, do,
-                                                           **kw),
-                           PHASE17_RUNS),
+                                                           **kw), runs),
                 plain_ms=time_ms(lambda: kfa.flash_attention_bwd_plain(
-                    q, k, v, o, do, **kw), PHASE17_RUNS),
-                library_ms=sdpa_grad_ms(q, k, v, do, valid, window,
-                                        PHASE17_RUNS),
-                bound_ms=bnd, bound_kind=kind, flops=flops)
+                    q, k, v, o, do, **kw), runs),
+                library_ms=sdpa_grad_ms(q, k, v, do, valid, window, runs),
+                bound_ms=bnd, bound_kind=kind, flops=flops, runs=runs)
         log(json.dumps(row))
         out[f"flash_attention_bwd/{key}"] = row
         del q, k, v, o, do
@@ -2661,7 +2705,8 @@ def phase_train_entry(runs: list) -> dict:
     fwd, bwd = 2 * nl * steps, nl * steps
     want_sites = {"flash_attention/full": fwd,
                   "flash_attention/route:mma": fwd,
-                  "flash_attention_bwd/full": bwd}
+                  "flash_attention_bwd/full": bwd,
+                  "flash_attention_bwd/route:mma": bwd}
     if counts["flash_attention"] != fwd or \
             counts["flash_attention_bwd"] != bwd or sites != want_sites:
         raise SystemExit(f"chip_smoke: {name}: launches {counts} {sites}, "
@@ -2703,6 +2748,8 @@ def profile_train_step(step, params, opt_state, batch) -> dict:
     """One profiled train step: device ms by group (GEMMs, K4/K5 forward,
     K4b/K5b, the optimizer, the rest) and the idle share."""
     from torch.profiler import ProfilerActivity, profile
+    # K4b's kernels on both routes (bwd_lse/dkv/dq, bwd_mma_lse/dkv/dq) are
+    # named "bwd_..." in their source's anonymous namespace; first match wins
     groups_of = {"K4b": "::bwd_", "K5b": "wkv_bwd_kernel",
                  "K4": "flash_", "K5": "wkv_chunked_kernel"}
     torch.cuda.synchronize()
@@ -2771,9 +2818,13 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
         runs.append({"path": f"{label}, {tag}", "launches": counts,
                      "sites": sites, "steps": 1})
         bwd = kernel + "_bwd"
+        # K4 and K4b name their routes alike: "mma" in bf16, "f32" in float32
         if counts[kernel] != 2 * layers_k or counts[bwd] != layers_k or (
-                want_route and sites.get(f"flash_attention/route:"
-                                         f"{want_route}") != 2 * layers_k):
+                want_route and (
+                    sites.get(f"flash_attention/route:{want_route}")
+                    != 2 * layers_k or
+                    sites.get(f"flash_attention_bwd/route:{want_route}")
+                    != layers_k)):
             raise SystemExit(f"chip_smoke: {label}, {tag}: launches "
                              f"{counts} {sites}, want {2 * layers_k} "
                              f"{kernel} and {layers_k} {bwd}")
@@ -3086,7 +3137,7 @@ def main() -> None:
                         "src/repro/kernels/wkv.py:96 wkv_chunked_pallas "
                         "(_wkv_kernel :39)"),
         "flash_attention_bwd": (
-            "src/repro_torch/csrc/flash_attention_bwd.cu",
+            K4B_SOURCES["mma"],
             "none (no TPU kernel): the backward of the jnp "
             "src/repro/models/layers.py:152 attention, which XLA "
             "differentiates"),
@@ -3133,6 +3184,10 @@ def main() -> None:
         if name == "ell_relax_round":
             entry["k3_route"] = t["route"]
             entry["shapes"] = t["shapes"]
+        if name in ("flash_attention", "flash_attention_bwd"):
+            # the source of each route; "source" above is the bf16 one
+            entry["sources"] = (K4_SOURCES if name == "flash_attention"
+                                else K4B_SOURCES)
         if name in ("flash_attention", "wkv_chunked", "flash_attention_bwd",
                     "wkv_chunked_bwd"):
             entry["tolerance"] = t["tolerance"]
@@ -3140,7 +3195,7 @@ def main() -> None:
                 f: v for f, v in row.items() if f in (
                     "shape", "route", "source", "ms", "call_ms", "plain_ms",
                     "library_ms", "cuda_core_ms", "bound_ms", "bound_kind",
-                    "max_abs_err", "timed")}
+                    "max_abs_err", "max_abs_err_vs_own_rounding", "timed")}
                 for k, row in lm_timed.items() if k.startswith(name + "/")}
         kernels.append(entry)
     log(json.dumps({"serving": {

@@ -12,8 +12,8 @@
 // visibility rule is K4's: key j is seen by query position i iff j <
 // lk_valid, j <= i + (lk_valid - Lq) if causal, and j > i + (lk_valid - Lq)
 // - window if window > 0.  A row that sees no key, and a key no row sees,
-// gets zeros.  Inputs are float32 or bf16; the math is float32 throughout
-// and dQ, dK, dV are written in the input type.
+// gets zeros.  This is route "f32": inputs, math and outputs are float32.
+// bf16 takes route "mma" (flash_attention_bwd_mma.cu).
 //
 // Replaces no TPU kernel: the reference's models differentiate their jnp
 // blockwise attention (repro/models/layers.py `attention`, `_attention_banded`
@@ -40,12 +40,11 @@
 //   3. `bwd_dq`: one block per (batch, KV head, 64 rows) holding dQ in
 //      registers; it walks the key tiles of the band, recomputing S and dP
 //      and accumulating dQ += dS K.
-// Every operand tile is converted to float32 in shared memory with rows
-// padded by one float (Q, dO, K, V at pitch D + 1), so the micro-tile loads
-// are free of bank conflicts.  BK = 64 keys for head dims up to 128 and 32
+// Every operand tile is staged in shared memory with rows padded by one
+// float (Q, dO, K, V at pitch D + 1), so the micro-tile loads are free of
+// bank conflicts.  BK = 64 keys for head dims up to 128 and 32
 // at D = 256, which keeps the register accumulators at 64 a thread and the
 // shared memory under 215 KB.  A local window bounds both walks to the band.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -54,11 +53,6 @@ constexpr int ROWS = 64;      // (query position, group head) rows per tile
 constexpr int THREADS = 256;
 constexpr int DMAX = 256;
 constexpr float NEG = -1.0e30f;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float* p, float x) { *p = x; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 template <int DM>
 struct Cfg {
@@ -79,8 +73,8 @@ struct Strides {              // element strides (batch, row, head) of each
 
 // stage rows r0 .. r0 + ROWS - 1 of a query-side tensor (q, o or dO) of KV
 // head hkv into dst [ROWS][QP], zeros past nrows or d
-template <typename T, int DM>
-__device__ void stage_rows(float* dst, const T* src, const long long* st,
+template <int DM>
+__device__ void stage_rows(float* dst, const float* src, const long long* st,
                            long long b, int hkv, int r0, int nrows,
                            const Geo& geo) {
     constexpr int QP = Cfg<DM>::QP;
@@ -90,15 +84,15 @@ __device__ void stage_rows(float* dst, const T* src, const long long* st,
         float x = 0.0f;
         if (gr < nrows && dd < geo.d) {
             const int i = gr / geo.g, h = hkv * geo.g + gr % geo.g;
-            x = to_f(src[b * st[0] + i * st[1] + h * st[2] + dd]);
+            x = src[b * st[0] + i * st[1] + h * st[2] + dd];
         }
         dst[r * QP + dd] = x;
     }
 }
 
 // stage keys k0 .. k0 + BK - 1 of K (and V) into [BK][QP], zeros from kend
-template <typename T, int DM>
-__device__ void stage_keys(float* dst, const T* src, const long long* st,
+template <int DM>
+__device__ void stage_keys(float* dst, const float* src, const long long* st,
                            long long b, int hkv, int k0, int kend,
                            const Geo& geo) {
     constexpr int QP = Cfg<DM>::QP, BK = Cfg<DM>::BK;
@@ -106,7 +100,7 @@ __device__ void stage_keys(float* dst, const T* src, const long long* st,
         const int j = e / DM, dd = e % DM;
         const int gj = k0 + j;
         float x = 0.0f;
-        if (gj < kend && dd < geo.d) x = to_f(src[b * st[0] + gj * st[1] + hkv * st[2] + dd]);
+        if (gj < kend && dd < geo.d) x = src[b * st[0] + gj * st[1] + hkv * st[2] + dd];
         dst[j * QP + dd] = x;
     }
 }
@@ -152,10 +146,10 @@ __device__ __forceinline__ void key_band(int r_lo, int r_hi, const Geo& geo,
 // ---------------------------------------------------------------------------
 // 1. each row's log-sum-exp and D = dO . O
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(THREADS)
-bwd_lse(float* lse, float* dsum, const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ o, const T* __restrict__ dout, Geo geo, Strides st) {
+bwd_lse(float* lse, float* dsum, const float* __restrict__ q, const float* __restrict__ k,
+        const float* __restrict__ o, const float* __restrict__ dout, Geo geo, Strides st) {
     using CF = Cfg<DM>;
     constexpr int QP = CF::QP, BK = CF::BK, SC = CF::SC, DC = CF::DC;
     extern __shared__ float smem[];
@@ -168,7 +162,7 @@ bwd_lse(float* lse, float* dsum, const T* __restrict__ q, const T* __restrict__ 
     const int off = geo.lk_valid - geo.lq;
     const long long rowbase = (b * gridDim.y + hkv) * (long long)nrows;
 
-    stage_rows<T, DM>(qs, q, st.q, b, hkv, r0, nrows, geo);
+    stage_rows<DM>(qs, q, st.q, b, hkv, r0, nrows, geo);
 
     // D of the thread's rows: 16 threads of a half-warp share a row
 #pragma unroll
@@ -177,12 +171,12 @@ bwd_lse(float* lse, float* dsum, const T* __restrict__ q, const T* __restrict__ 
         float part = 0.0f;
         if (gr < nrows) {
             const int qi = gr / geo.g, h = hkv * geo.g + gr % geo.g;
-            const T* orow = o + b * st.o[0] + qi * st.o[1] + h * st.o[2];
-            const T* drow = dout + b * st.dout[0] + qi * st.dout[1] + h * st.dout[2];
+            const float* orow = o + b * st.o[0] + qi * st.o[1] + h * st.o[2];
+            const float* drow = dout + b * st.dout[0] + qi * st.dout[1] + h * st.dout[2];
 #pragma unroll
             for (int j = 0; j < DC; ++j) {
                 const int dd = tx + 16 * j;
-                if (dd < geo.d) part = fmaf(to_f(drow[dd]), to_f(orow[dd]), part);
+                if (dd < geo.d) part = fmaf(drow[dd], orow[dd], part);
             }
         }
 #pragma unroll
@@ -203,7 +197,7 @@ bwd_lse(float* lse, float* dsum, const T* __restrict__ q, const T* __restrict__ 
     for (int kt = t0; kt < t1; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();
-        stage_keys<T, DM>(ks, k, st.k, b, hkv, k0, kend, geo);
+        stage_keys<DM>(ks, k, st.k, b, hkv, k0, kend, geo);
         __syncthreads();
         float s[4][SC];
         micro<DM>(s, qs, ks, ty, tx);
@@ -267,11 +261,11 @@ __device__ __forceinline__ void p_ds(float (&p)[4][Cfg<DM>::SC], float (&ds)[4][
 // ---------------------------------------------------------------------------
 // 2. dK and dV of a key tile, over the rows of its band
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(THREADS)
-bwd_dkv(T* dk, T* dv, const float* __restrict__ lse, const float* __restrict__ dsum,
-        const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-        const T* __restrict__ dout, Geo geo, Strides st) {
+bwd_dkv(float* dk, float* dv, const float* __restrict__ lse, const float* __restrict__ dsum,
+        const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+        const float* __restrict__ dout, Geo geo, Strides st) {
     using CF = Cfg<DM>;
     constexpr int QP = CF::QP, BK = CF::BK, SC = CF::SC, DC = CF::DC;
     constexpr int KPT = BK / 16;      // keys a thread accumulates
@@ -292,8 +286,8 @@ bwd_dkv(T* dk, T* dv, const float* __restrict__ lse, const float* __restrict__ d
     const int off = geo.lk_valid - geo.lq;
     const long long rowbase = (b * gridDim.y + hkv) * (long long)nrows;
 
-    stage_keys<T, DM>(ks, k, st.k, b, hkv, k0, geo.lk_valid, geo);
-    stage_keys<T, DM>(vs, v, st.v, b, hkv, k0, geo.lk_valid, geo);
+    stage_keys<DM>(ks, k, st.k, b, hkv, k0, geo.lk_valid, geo);
+    stage_keys<DM>(vs, v, st.v, b, hkv, k0, geo.lk_valid, geo);
 
     // the query positions of the band: i + off >= k0 if causal, and
     // i + off - window < the tile's last visible key
@@ -313,8 +307,8 @@ bwd_dkv(T* dk, T* dv, const float* __restrict__ lse, const float* __restrict__ d
 
     for (int r0 = r_lo; r0 < r_hi; r0 += ROWS) {
         __syncthreads();              // the previous tile's readers are done
-        stage_rows<T, DM>(qs, q, st.q, b, hkv, r0, r_hi, geo);
-        stage_rows<T, DM>(dos, dout, st.dout, b, hkv, r0, r_hi, geo);
+        stage_rows<DM>(qs, q, st.q, b, hkv, r0, r_hi, geo);
+        stage_rows<DM>(dos, dout, st.dout, b, hkv, r0, r_hi, geo);
         for (int r = tid; r < ROWS; r += THREADS) {
             const bool ok = r0 + r < r_hi;
             lse_s[r] = ok ? lse[rowbase + r0 + r] : 0.0f;
@@ -358,14 +352,14 @@ bwd_dkv(T* dk, T* dv, const float* __restrict__ lse, const float* __restrict__ d
     for (int a = 0; a < KPT; ++a) {
         const int kj = k0 + ty * KPT + a;
         if (kj >= geo.lk) continue;
-        T* krow = dk + b * st.dk[0] + kj * st.dk[1] + hkv * st.dk[2];
-        T* vrow = dv + b * st.dv[0] + kj * st.dv[1] + hkv * st.dv[2];
+        float* krow = dk + b * st.dk[0] + kj * st.dk[1] + hkv * st.dk[2];
+        float* vrow = dv + b * st.dv[0] + kj * st.dv[1] + hkv * st.dv[2];
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
             const int dd = tx + 16 * j;
             if (dd < geo.d) {
-                from_f(krow + dd, akk[a][j] * geo.scale);
-                from_f(vrow + dd, avv[a][j]);
+                krow[dd] = akk[a][j] * geo.scale;
+                vrow[dd] = avv[a][j];
             }
         }
     }
@@ -374,11 +368,11 @@ bwd_dkv(T* dk, T* dv, const float* __restrict__ lse, const float* __restrict__ d
 // ---------------------------------------------------------------------------
 // 3. dQ of a row tile, over the key tiles of its band
 // ---------------------------------------------------------------------------
-template <typename T, int DM>
+template <int DM>
 __global__ void __launch_bounds__(THREADS)
-bwd_dq(T* dq, const float* __restrict__ lse, const float* __restrict__ dsum,
-       const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-       const T* __restrict__ dout, Geo geo, Strides st) {
+bwd_dq(float* dq, const float* __restrict__ lse, const float* __restrict__ dsum,
+       const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+       const float* __restrict__ dout, Geo geo, Strides st) {
     using CF = Cfg<DM>;
     constexpr int QP = CF::QP, BK = CF::BK, SC = CF::SC, DC = CF::DC;
     constexpr int PP = ROWS + 1;      // pitch of the dS tile, stored [key][row]
@@ -396,8 +390,8 @@ bwd_dq(T* dq, const float* __restrict__ lse, const float* __restrict__ dsum,
     const int nrows = geo.lq * geo.g, r0 = blockIdx.x * ROWS;
     const long long rowbase = (b * gridDim.y + hkv) * (long long)nrows;
 
-    stage_rows<T, DM>(qs, q, st.q, b, hkv, r0, nrows, geo);
-    stage_rows<T, DM>(dos, dout, st.dout, b, hkv, r0, nrows, geo);
+    stage_rows<DM>(qs, q, st.q, b, hkv, r0, nrows, geo);
+    stage_rows<DM>(dos, dout, st.dout, b, hkv, r0, nrows, geo);
     for (int r = tid; r < ROWS; r += THREADS) {
         const bool ok = r0 + r < nrows;
         lse_s[r] = ok ? lse[rowbase + r0 + r] : 0.0f;
@@ -415,8 +409,8 @@ bwd_dq(T* dq, const float* __restrict__ lse, const float* __restrict__ dsum,
     for (int kt = t0; kt < t1; ++kt) {
         const int k0 = kt * BK;
         __syncthreads();
-        stage_keys<T, DM>(ks, k, st.k, b, hkv, k0, kend, geo);
-        stage_keys<T, DM>(vs, v, st.v, b, hkv, k0, kend, geo);
+        stage_keys<DM>(ks, k, st.k, b, hkv, k0, kend, geo);
+        stage_keys<DM>(vs, v, st.v, b, hkv, k0, kend, geo);
         __syncthreads();
         float p[4][SC], ds[4][SC];
         p_ds<DM>(p, ds, qs, dos, ks, vs, lse_s, d_s, r0, nrows, k0, geo, ty, tx);
@@ -444,11 +438,11 @@ bwd_dq(T* dq, const float* __restrict__ lse, const float* __restrict__ dsum,
         const int gr = r0 + 4 * ty + i;
         if (gr >= nrows) continue;
         const int qi = gr / geo.g, h = hkv * geo.g + gr % geo.g;
-        T* row = dq + b * st.dq[0] + qi * st.dq[1] + h * st.dq[2];
+        float* row = dq + b * st.dq[0] + qi * st.dq[1] + h * st.dq[2];
 #pragma unroll
         for (int j = 0; j < DC; ++j) {
             const int dd = tx + 16 * j;
-            if (dd < geo.d) from_f(row + dd, acc[i][j] * geo.scale);
+            if (dd < geo.d) row[dd] = acc[i][j] * geo.scale;
         }
     }
 }
@@ -459,7 +453,7 @@ cudaError_t allow(K kernel, size_t smem) {
                                 static_cast<int>(smem));
 }
 
-template <typename T, int DM>
+template <int DM>
 int launch(void* dq, void* dk, void* dv, const void* q, const void* k,
            const void* v, const void* o, const void* dout, float* lse,
            float* dsum, int batch, int hkv, const Geo& geo, const Strides& st,
@@ -472,42 +466,41 @@ int launch(void* dq, void* dk, void* dv, const void* q, const void* k,
     const size_t s_dq = ((2 * ROWS + 2 * BK) * QP + BK * (ROWS + 1) + 2 * ROWS)
                         * sizeof(float);
     cudaError_t err;
-    if ((err = allow(bwd_lse<T, DM>, s_lse)) != cudaSuccess) return err;
-    if ((err = allow(bwd_dkv<T, DM>, s_dkv)) != cudaSuccess) return err;
-    if ((err = allow(bwd_dq<T, DM>, s_dq)) != cudaSuccess) return err;
-    const T* tq = static_cast<const T*>(q);
-    const T* tk = static_cast<const T*>(k);
-    const T* tv = static_cast<const T*>(v);
-    const T* td = static_cast<const T*>(dout);
+    if ((err = allow(bwd_lse<DM>, s_lse)) != cudaSuccess) return err;
+    if ((err = allow(bwd_dkv<DM>, s_dkv)) != cudaSuccess) return err;
+    if ((err = allow(bwd_dq<DM>, s_dq)) != cudaSuccess) return err;
+    const float* tq = static_cast<const float*>(q);
+    const float* tk = static_cast<const float*>(k);
+    const float* tv = static_cast<const float*>(v);
+    const float* td = static_cast<const float*>(dout);
     const int nrows = geo.lq * geo.g;
     const dim3 rows((nrows + ROWS - 1) / ROWS, hkv, batch);
     const dim3 keys((geo.lk + BK - 1) / BK, hkv, batch);
-    bwd_lse<T, DM><<<rows, THREADS, s_lse, stream>>>(
-        lse, dsum, tq, tk, static_cast<const T*>(o), td, geo, st);
+    bwd_lse<DM><<<rows, THREADS, s_lse, stream>>>(
+        lse, dsum, tq, tk, static_cast<const float*>(o), td, geo, st);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    bwd_dkv<T, DM><<<keys, THREADS, s_dkv, stream>>>(
-        static_cast<T*>(dk), static_cast<T*>(dv), lse, dsum, tq, tk, tv, td, geo, st);
+    bwd_dkv<DM><<<keys, THREADS, s_dkv, stream>>>(
+        static_cast<float*>(dk), static_cast<float*>(dv), lse, dsum, tq, tk, tv, td, geo, st);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    bwd_dq<T, DM><<<rows, THREADS, s_dq, stream>>>(
-        static_cast<T*>(dq), lse, dsum, tq, tk, tv, td, geo, st);
+    bwd_dq<DM><<<rows, THREADS, s_dq, stream>>>(
+        static_cast<float*>(dq), lse, dsum, tq, tk, tv, td, geo, st);
     return cudaGetLastError();
 }
 
-template <typename T>
 int dispatch(int d, void* dq, void* dk, void* dv, const void* q, const void* k,
              const void* v, const void* o, const void* dout, float* lse,
              float* dsum, int batch, int hkv, const Geo& geo, const Strides& st,
              cudaStream_t s) {
     if (d > 128)
-        return launch<T, DMAX>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
+        return launch<DMAX>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
     if (d > 64)
-        return launch<T, 128>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
-    return launch<T, 64>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
+        return launch<128>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
+    return launch<64>(dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, st, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; head dim <= 256; window 0 means none.
+// float32 throughout; head dim <= 256; window 0 means none.
 // st: 24 element strides, (batch, row, head) of q, k, v, o, dout, dq, dk, dv
 // in that order (the head-dim axis contiguous).  lse and dsum: float32
 // scratch of batch * hq * lq each.  dk and dv are written for all lk keys
@@ -515,12 +508,12 @@ int dispatch(int d, void* dq, void* dk, void* dv, const void* q, const void* k,
 extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, const void* q,
                                    const void* k, const void* v, const void* o,
                                    const void* dout, float* lse, float* dsum,
-                                   int dtype, int batch, int lq, int lk,
+                                   int batch, int lq, int lk,
                                    int lk_valid, int hq, int hkv, int d,
                                    int causal, int window, float scale,
                                    const long long* st, void* stream) {
     if (d > DMAX || d <= 0 || hkv <= 0 || hq % hkv != 0 || window < 0
-        || lk_valid < 0 || lk_valid > lk || (dtype != 0 && dtype != 1))
+        || lk_valid < 0 || lk_valid > lk)
         return static_cast<int>(cudaErrorInvalidValue);
     if (batch <= 0 || lq <= 0 || lk <= 0) return static_cast<int>(cudaGetLastError());
     Strides s;
@@ -529,8 +522,5 @@ extern "C" int flash_attention_bwd(void* dq, void* dk, void* dv, const void* q,
         for (int i = 0; i < 3; ++i) dst[t][i] = st[3 * t + i];
     const Geo geo{lq, lk, lk_valid, hq / hkv, d, causal, window, scale};
     cudaStream_t cs = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return dispatch<float>(d, dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, s, cs);
-    return dispatch<__nv_bfloat16>(d, dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo,
-                                   s, cs);
+    return dispatch(d, dq, dk, dv, q, k, v, o, dout, lse, dsum, batch, hkv, geo, s, cs);
 }

@@ -15,9 +15,10 @@ fallback.
 ``flash_attention_bwd`` (K4b) and ``wkv_chunked_bwd`` (K5b).
 ``SITE_LAUNCHES`` splits them by the caller that names itself (the blocked
 Floyd-Warshall panels, the full-sequence and the decode attention, and the
-attention backward's site) and, for K3 and K4, by route
+attention backward's site) and, for K3, K4 and K4b, by route
 (``ell_relax_round/route:slab``, ``route:l2``; ``flash_attention/route:mma``,
-``route:decode``, ``route:f32``); a run resets both with ``reset_launches``
+``route:decode``, ``route:f32``; ``flash_attention_bwd/route:mma``,
+``route:f32``); a run resets both with ``reset_launches``
 and reads them afterwards to show which kernels the path went through.
 """
 from __future__ import annotations
@@ -60,13 +61,15 @@ _SIGNATURES = {
     "flash_decode": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, *(_L,) * 12, _P),
     "wkv_chunked": (*(_P,) * 8, _I, _I, _I, _I, *(_L,) * 17, _P),
     # the two backward entries take their strides as a host array of int64
-    "flash_attention_bwd": (*(_P,) * 10, *(_I,) * 10, _F, _P, _P),
+    "flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _P, _P),
+    "flash_attention_bwd_mma": (*(_P,) * 10, *(_I,) * 9, _F, _P, _P),
     "wkv_chunked_bwd": (*(_P,) * 15, *(_I,) * 4, _P, _P),
 }
 
 # the kernels K1-K5 and the backwards K4b, K5b; K4's three C entries (its
-# routes) all count under "flash_attention", split by route in
-# SITE_LAUNCHES; a call of K4b (three kernels) or K5b counts once
+# routes) all count under "flash_attention" and K4b's two under
+# "flash_attention_bwd", split by route in SITE_LAUNCHES; a call of K4b
+# (three kernels) or K5b counts once
 LAUNCHES: dict[str, int] = dict.fromkeys(
     ("minplus_acc", "fw_pivot", "ell_relax_round", "flash_attention",
      "wkv_chunked", "flash_attention_bwd", "wkv_chunked_bwd"), 0)

@@ -46,9 +46,14 @@ masks its ragged edges itself, so nothing is padded, whatever ``Lq`` or
 ``Lk``), the plain version for CPU tensors.  There is no fallback between
 them, and the route never depends on a failure.
 
-The backward is K4b (``csrc/flash_attention_bwd.cu``), the FlashAttention-2
-algebra on the CUDA cores for both types, and ``flash_attention_bwd_plain``
-its torch version.  The reference has no TPU kernel for it: its models
+The backward is K4b, the FlashAttention-2 algebra in three passes (no
+atomics), with ``flash_attention_bwd_plain`` its torch version.  It has two
+routes, picked by ``flash_bwd_route`` from the dtype alone: ``"mma"`` (bf16:
+``csrc/flash_attention_bwd_mma.cu``, every product on the tensor cores, P
+and dS split into bf16 high and low parts, whose rounding
+``flash_attention_bwd_mma_plain`` repeats in torch) and ``"f32"`` (float32:
+``csrc/flash_attention_bwd.cu``, float32 FMA on the CUDA cores).  The
+reference has no TPU kernel for it: its models
 differentiate the jnp ``layers.attention`` (``_attention_banded`` for the
 window), which K4 stands in for, through XLA.  ``flash_attention`` is an
 autograd function when a gradient is to be taken; each row's log-sum-exp
@@ -66,6 +71,7 @@ from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_plain", "flash_attention", "flash_route",
            "flash_attention_bwd_plain", "flash_attention_bwd",
+           "flash_attention_bwd_mma_plain", "flash_bwd_route", "BWD_ROWS",
            "flash_split_partials_plain", "flash_split_combine_plain",
            "flash_attention_split_plain", "D_MAX", "DECODE_ROWS",
            "DECODE_SPLIT", "NEG"]
@@ -74,6 +80,7 @@ D_MAX = 256        # largest head dim K4 takes
 DECODE_ROWS = 16   # rows per (batch, KV head) up to which route "decode" runs
 DECODE_SPLIT = 64  # keys per split of route "decode" (SPLIT in flash_decode.cu)
 NEG = -1.0e30      # the kernels' masked score, and m of a split that saw no key
+BWD_ROWS = 128     # K4b "mma": lse and D scratch rows padded to (ROWS_PAD)
 
 
 def _scale(d: int, scale: float | None) -> float:
@@ -333,21 +340,22 @@ def _flash_forward(q, k, v, causal, scale, valid, window, site):
 # K4b: the backward
 # ---------------------------------------------------------------------------
 
-def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
-                              v: torch.Tensor, o: torch.Tensor,
-                              do: torch.Tensor, *, causal: bool = True,
-                              scale: float | None = None,
-                              lk_valid: int | None = None, window: int = 0
-                              ) -> tuple[torch.Tensor, torch.Tensor,
-                                         torch.Tensor]:
-    """Plain torch version of K4b: the gradients (dq, dk, dv) of
-    ``flash_attention_plain`` at (q, k, v), given its output ``o`` and the
-    output's cotangent ``do``, by the FlashAttention-2 algebra: P recomputed
-    from each row's log-sum-exp, D_i = rowsum(dO_i o O_i), dS = P o (dP -
-    D) with dP = dO V^T, dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO,
-    dK and dV summed over the g query heads of each KV head.  Float32
-    throughout, each result cast to its input's type; a row that sees no
-    key, and a key no row sees, gives zeros."""
+def _bf16_split(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as route "mma" feeds it to the tensor cores: a bf16 high part
+    plus the bf16 rounding of what it leaves out (both round to nearest
+    even), summed in float32."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
+                 rnd=None):
+    """``flash_attention_bwd_plain``'s algebra, with P rounded by ``rnd``
+    before dV = P^T dO and dS before dQ and dK when ``rnd`` is given.  dV
+    depends only on P's rounding, dQ and dK only on dS's."""
+    if rnd is None:
+        def rnd(x):
+            return x
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -366,13 +374,57 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     dof = do.float().reshape(b, lq, hkv, g, d)
     dsum = (dof * o.float().reshape(b, lq, hkv, g, d)).sum(-1)  # [b,q,h,g]
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dof)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dof)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
-    ds = p * (dp - dsum.permute(0, 2, 3, 1)[..., None])
+    ds = rnd(p * (dp - dsum.permute(0, 2, 3, 1)[..., None]))
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * sc
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * sc
     return (dq.reshape(b, lq, hq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              scale: float | None = None,
+                              lk_valid: int | None = None, window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain torch version of K4b: the gradients (dq, dk, dv) of
+    ``flash_attention_plain`` at (q, k, v), given its output ``o`` and the
+    output's cotangent ``do``, by the FlashAttention-2 algebra: P recomputed
+    from each row's log-sum-exp, D_i = rowsum(dO_i o O_i), dS = P o (dP -
+    D) with dP = dO V^T, dQ = scale dS K, dK = scale dS^T Q and dV = P^T dO,
+    dK and dV summed over the g query heads of each KV head.  Float32
+    throughout, each result cast to its input's type; a row that sees no
+    key, and a key no row sees, gives zeros."""
+    return _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window)
+
+
+def flash_attention_bwd_mma_plain(q: torch.Tensor, k: torch.Tensor,
+                                  v: torch.Tensor, o: torch.Tensor,
+                                  do: torch.Tensor, *, causal: bool = True,
+                                  scale: float | None = None,
+                                  lk_valid: int | None = None,
+                                  window: int = 0
+                                  ) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """K4b route "mma"'s rounding in torch (used by the tests and
+    ``chip_smoke.py``, never by the wrapper): ``flash_attention_bwd_plain``'s
+    algebra with P rounded where the kernel rounds it before dV = P^T dO,
+    and dS before dQ = scale dS K and dK = scale dS^T Q, each as a bf16 high
+    part plus a bf16 low part (``_bf16_split``); q, k, v and dO are bf16
+    already, so no other operand is rounded.  A single bf16 rounding of P
+    or dS would miss K4b's bf16 tolerance (``tools/k4b_rounding.py``
+    measures by how much)."""
+    return _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
+                        _bf16_split)
+
+
+def flash_bwd_route(dtype: torch.dtype) -> str:
+    """The route K4b takes on the card: ``"mma"`` for bf16, ``"f32"`` for
+    float32."""
+    return "mma" if dtype == torch.bfloat16 else "f32"
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -383,12 +435,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` at (q, k, v) from its output
     ``o`` and the cotangent ``do``, in q's type.  CUDA tensors launch K4b
-    (``csrc/flash_attention_bwd.cu``: three kernels, one for each row's
-    log-sum-exp and D, one over key tiles for dK and dV, one over query
-    tiles for dQ; no atomics), CPU tensors run
+    on the route ``flash_bwd_route`` picks (three kernels, one for each
+    row's log-sum-exp and D, one over key tiles for dK and dV, one over
+    query tiles for dQ; no atomics), CPU tensors run
     ``flash_attention_bwd_plain``.  Every call counts once in
-    ``_build.LAUNCHES["flash_attention_bwd"]`` (and under
-    ``"flash_attention_bwd/<site>"`` when ``site`` is given)."""
+    ``_build.LAUNCHES["flash_attention_bwd"]`` and once under
+    ``"flash_attention_bwd/route:<route>"`` in ``_build.SITE_LAUNCHES``
+    (and under ``"flash_attention_bwd/<site>"`` when ``site`` is given)."""
     valid, window = _args(q, k, v, lk_valid, window)
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} and do "
@@ -412,21 +465,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    # each row's log-sum-exp and D, rows (b, KV head, i * g + h)
-    lse = torch.empty(b * hq * lq, dtype=torch.float32, device=q.device)
+    route = flash_bwd_route(q.dtype)
+    # each row's log-sum-exp and D, rows (b, KV head, i * g + h); route
+    # "mma" pads each (b, KV head)'s rows to a multiple of BWD_ROWS
+    rows = lq * (hq // hkv)
+    if route == "mma":
+        rows = -(-rows // BWD_ROWS) * BWD_ROWS
+    lse = torch.empty(b * hkv * rows, dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     strides = (ctypes.c_longlong * 24)(*(
         s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
     lib = _build.load()
-    code = lib.flash_attention_bwd(
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), dsum.data_ptr(),
-        0 if q.dtype == torch.float32 else 1, b, lq, lk, valid, hq, hkv, d,
-        int(causal), window, _scale(d, scale), strides,
-        _build.stream_ptr(q.device))
+    ptrs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr())
+    geo = (b, lq, lk, valid, hq, hkv, d, int(causal), window,
+           _scale(d, scale), strides, _build.stream_ptr(q.device))
+    entry = (lib.flash_attention_bwd_mma if route == "mma"
+             else lib.flash_attention_bwd)
+    code = entry(*ptrs, *geo)
     _build.LAUNCHES["flash_attention_bwd"] += 1
+    _build.SITE_LAUNCHES[f"flash_attention_bwd/route:{route}"] += 1
     if site is not None:
         _build.SITE_LAUNCHES[f"flash_attention_bwd/{site}"] += 1
-    _build.check(code, "flash_attention_bwd")
+    _build.check(code, f"flash_attention_bwd ({route})")
     return dq, dk, dv

@@ -751,28 +751,47 @@ def _scale(grads):
     (1, 160, 160, 2, 2, 136, True, 150, 50),    # d = 136, lk_valid < Lk
     (2, 5, 40, 3, 1, 64, True, None, 0),        # 15 rows
     (1, 130, 130, 2, 1, 64, True, None, 1),     # window 1
+    (2, 150, 150, 28, 4, 128, True, None, 0),   # g = 7 (qwen2-vl-7b)
+    (1, 180, 260, 10, 1, 256, True, 240, 90),   # D = 256, g = 10, Lq != Lk
 ])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, b, lq, lk, hq,
                                                 hkv, d, causal, lk_valid,
                                                 window):
     """K4b against ``flash_attention_bwd_plain`` on the same inputs (the
-    output from the plain forward), one call counted."""
+    output from the plain forward), one call counted on the dtype's route;
+    a second call gives the same bits (no atomics).  Route "mma" (bf16) is
+    also held against ``flash_attention_bwd_mma_plain``, which rounds P and
+    dS as it does: the same float32 algebra summed in another order, so one
+    bf16 ulp (2^-7 |x|) and 1e-4 of the scale apart."""
     q = _normal(31, b, lq, hq, d).to(cuda, dtype)
     k = _normal(32, b, lk, hkv, d).to(cuda, dtype)
     v = _normal(33, b, lk, hkv, d).to(cuda, dtype)
     do = _normal(34, b, lq, hq, d).to(cuda, dtype)
     kw = dict(causal=causal, lk_valid=lk_valid, window=window)
     o = p_flash.flash_attention_plain(q, k, v, **kw)
-    before = _build.LAUNCHES["flash_attention_bwd"]
+    route = "mma" if dtype == torch.bfloat16 else "f32"
+    assert p_flash.flash_bwd_route(dtype) == route
+    site = f"flash_attention_bwd/route:{route}"
+    before = (_build.LAUNCHES["flash_attention_bwd"], _build.SITE_LAUNCHES[site])
     got = p_flash.flash_attention_bwd(q, k, v, o, do, site="test", **kw)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["flash_attention_bwd"] == before + 1
+    assert (_build.LAUNCHES["flash_attention_bwd"],
+            _build.SITE_LAUNCHES[site]) == (before[0] + 1, before[1] + 1)
+    again = p_flash.flash_attention_bwd(q, k, v, o, do, **kw)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
     want = p_flash.flash_attention_bwd_plain(q, k, v, o, do, **kw)
     # window 1: dQ and dK are 0 in exact arithmetic
     scale = _scale(want) if window == 1 else None
     for g, w in zip(got, want):
         assert g.dtype == dtype and torch.isfinite(g).all()
         _close_grad(g, w, dtype, scale)
+    if route == "mma":
+        emu = p_flash.flash_attention_bwd_mma_plain(q, k, v, o, do, **kw)
+        for g, w in zip(got, emu):
+            sc = scale if scale is not None else float(w.float().abs().max())
+            torch.testing.assert_close(g.float(), w.float(),
+                                       atol=1e-4 * max(sc, 1e-30),
+                                       rtol=2.0 ** -7)
 
 
 @pytest.mark.cuda

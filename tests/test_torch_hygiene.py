@@ -122,7 +122,7 @@ def test_kernel_sources_and_bindings_agree():
     assert names == {"minplus.cu", "fw_pivot.cu", "ell.cu",
                      "flash_attention.cu", "flash_attention_mma.cu",
                      "flash_decode.cu", "wkv.cu", "flash_attention_bwd.cu",
-                     "wkv_bwd.cu"}
+                     "flash_attention_bwd_mma.cu", "wkv_bwd.cu"}
     text = "".join(p.read_text() for p in _build.SOURCES)
     for entry in _build._SIGNATURES:
         assert f'extern "C" int {entry}(' in text, entry
@@ -131,7 +131,8 @@ def test_kernel_sources_and_bindings_agree():
         # none, the reference's XLA differentiates its jnp functions) and
         # what bounds it
         head = src.read_text()[:3000]
-        backward = src.name in ("flash_attention_bwd.cu", "wkv_bwd.cu")
+        backward = src.name in ("flash_attention_bwd.cu",
+                                "flash_attention_bwd_mma.cu", "wkv_bwd.cu")
         assert ("Replaces no TPU kernel" if backward
                 else "Replaces the TPU kernel") in head, src.name
         assert "bounds it on Hopper" in head, src.name
