@@ -150,13 +150,13 @@ Phases (any failure exits non-zero; no phase catches and continues):
    float32 at minitron-4b's and recurrentgemma-2b's and on a ragged case
    (Lq != Lk, lk_valid < Lk, a window), and untimed on the ragged case in
    bf16 and at a padded head dim (D = 96); bf16 on route "mma", float32 on
-   "f32" (by the site counter), each twice with the same bits, route
-   "mma" also against the plain version of its own rounding; and K5b
-   ``wkv_chunked_bwd`` at [8, T, 64,
-   64] float32 as [B, H, T, n] views (T = 1024 and 1000, s0 and a final
-   state cotangent), each against its plain backward on the card and timed
-   beside its bound (K4b also beside SDPA's backward, and in bf16 beside
-   the CUDA-core kernel on the same inputs); (b) musicgen-medium
+   "f32" (by the site counter), each twice with the same bits, each route
+   also against the plain version of its own rounding (bf16 hi/lo,
+   3xTF32); and K5b ``wkv_chunked_bwd`` at [8, T, 64, 64] float32 as [B,
+   H, T, n] views (T = 1024 and 1000, s0 and a final state cotangent),
+   twice with the same bits; each against its plain backward on the card
+   and timed beside its bound (K4b also beside SDPA's backward); (b)
+   musicgen-medium
    trained at full width and depth through
    ``repro_torch.launch.train.main`` (6 steps of 8 x 1024 tokens): finite
    losses and grad norms, every leaf moved, 48 K4 launches a step plus 48
@@ -194,7 +194,7 @@ four families among them).  K4's
 rwkv6-7b's; every K4 launch of the bf16 prefill must take route "mma" and
 every one of a decode step route "decode".  K4b's ``launches`` are from
 phase 17b's musicgen-medium training (one a call, three kernels), K5b's
-from phase 17c's rwkv6-7b gradient.
+from phase 17c's rwkv6-7b gradient (one a call, three kernels).
 """
 from __future__ import annotations
 
@@ -2466,6 +2466,16 @@ K4B_TOL = {torch.bfloat16: (1e-3, 8e-3), torch.float32: (1e-4, 1e-4)}
 # most one bf16 ulp (<= 2^-7 |x|), plus 1e-4 of the gradient's largest
 # entry for the float32 differences (K4B_TOL's atol is 1e-3)
 K4B_MMA_TOL = (1e-4, 2.0 ** -7)
+# route "f32" against ``flash_attention_bwd_tf32_plain``, which runs every
+# product as 3xTF32 as the kernel does: the same split products, summed in
+# another order and by the tensor cores' float32 accumulation, which rounds
+# otherwise than torch's float32 adds, so K4B_TOL's float32 entry (one TF32
+# rounding of any product misses it by 1.3-7.9x, ``tools/k4b_rounding.py
+# --float32``)
+K4B_TF32_TOL = (1e-4, 1e-4)
+# each route's plain version of its own rounding, and that check's tolerance
+K4B_OWN = {"mma": ("flash_attention_bwd_mma_plain", K4B_MMA_TOL),
+           "f32": ("flash_attention_bwd_tf32_plain", K4B_TF32_TOL)}
 # K5b: the chunk algebra in float32 summed in another order; exponents up to
 # +-80 in a chunk scale the rounding of exp (K5's tolerance, relative to
 # each gradient's largest entry)
@@ -2565,9 +2575,9 @@ def wkv_bwd_terms(lanes: int, t: int, n: int) -> tuple[float, float]:
 
 def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
     """17a: K4b and K5b against their plain backwards on the card, timed
-    beside their bounds (and, for K4b, SDPA's backward).  K4b on its route
-    (by the site counter), twice on the same inputs with the same bits, and
-    route "mma" also against the plain version of its own rounding."""
+    beside their bounds (and, for K4b, SDPA's backward).  Each twice on the
+    same inputs with the same bits; K4b on its route (by the site counter)
+    and also against the plain version of its route's own rounding."""
     from repro_torch.kernels import _build
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(17)
@@ -2608,12 +2618,12 @@ def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
                "rel_l2_dq_dk_dv": grad_rel_l2(got, want), "timed": timed,
                "same_bits_twice": True}
         del want
-        if route == "mma":
-            emu = kfa.flash_attention_bwd_mma_plain(q, k, v, o, do, **kw)
-            row.update(max_abs_err_vs_own_rounding=close_scaled(
-                f"K4b {key} (against its own rounding)", got, emu,
-                K4B_MMA_TOL), tolerance_vs_own_rounding=K4B_MMA_TOL)
-            del emu
+        own, own_tol = K4B_OWN[route]
+        emu = getattr(kfa, own)(q, k, v, o, do, **kw)
+        row.update(own_rounding=own, max_abs_err_vs_own_rounding=close_scaled(
+            f"K4b {key} (against {own})", got, emu, own_tol),
+            tolerance_vs_own_rounding=own_tol)
+        del emu
         del got
         if timed:
             es = q.element_size()
@@ -2652,6 +2662,12 @@ def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
         got = kwkv.wkv_chunked_bwd(*args)
         if _build.LAUNCHES["wkv_chunked_bwd"] != before + 1:
             raise SystemExit("chip_smoke: K5b did not count its call")
+        again = kwkv.wkv_chunked_bwd(*args)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, c) for a, c in zip(got, again)):
+            raise SystemExit(f"chip_smoke: K5b T={t}: two calls on the same "
+                             "inputs gave different bits")
+        del again
         want = kwkv.wkv_chunked_bwd_plain(*args)
         err = close_scaled(f"K5b T={t}", got, want, K5B_TOL)
         rel = grad_rel_l2(got, want)
@@ -2662,6 +2678,7 @@ def phase_train_kernels(kfa, kwkv) -> dict[str, dict]:
                "shape": f"[{b},{t},{h},{n}] f32 as [B,H,T,n] views, s0, ds",
                "max_abs_err": err, "tolerance": K5B_TOL,
                "rel_l2_dr_dk_dv_dlogw_du_ds0": rel, "timed": True,
+               "same_bits_twice": True,
                "ms": time_ms(lambda: kwkv.wkv_chunked_bwd(*args),
                              PHASE17_RUNS),
                "plain_ms": time_ms(lambda: kwkv.wkv_chunked_bwd_plain(*args),
@@ -2748,9 +2765,10 @@ def profile_train_step(step, params, opt_state, batch) -> dict:
     """One profiled train step: device ms by group (GEMMs, K4/K5 forward,
     K4b/K5b, the optimizer, the rest) and the idle share."""
     from torch.profiler import ProfilerActivity, profile
-    # K4b's kernels on both routes (bwd_lse/dkv/dq, bwd_mma_lse/dkv/dq) are
-    # named "bwd_..." in their source's anonymous namespace; first match wins
-    groups_of = {"K4b": "::bwd_", "K5b": "wkv_bwd_kernel",
+    # K4b's kernels on both routes (bwd_tf32_*, bwd_mma_*) are named
+    # "bwd_..." in their source's anonymous namespace, K5b's "wkv_bwd_..."
+    # (sweep, chunk, du); first match wins
+    groups_of = {"K4b": "::bwd_", "K5b": "wkv_bwd_",
                  "K4": "flash_", "K5": "wkv_chunked_kernel"}
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2809,6 +2827,7 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
 
     def grads(m, c, tag, want_route):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         _build.reset_launches()
         with no_plain_kernels(kfa, kwkv):
@@ -2828,7 +2847,8 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
             raise SystemExit(f"chip_smoke: {label}, {tag}: launches "
                              f"{counts} {sites}, want {2 * layers_k} "
                              f"{kernel} and {layers_k} {bwd}")
-        return float(metrics["loss"]), g, time.perf_counter() - t0
+        return (float(metrics["loss"]), g, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9)
 
     def plain(m, c, bf16_inputs=False):
         _build.reset_launches()
@@ -2838,8 +2858,8 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
             raise SystemExit("chip_smoke: the plain path launched a kernel")
         return float(metrics["loss"]), g
 
-    loss_k, g_k, grad_s = grads(model, cfg, "bf16",
-                                None if ssm else "mma")
+    loss_k, g_k, grad_s, grad_peak_gb = grads(model, cfg, "bf16",
+                                              None if ssm else "mma")
     loss_p, g_p = plain(model, cfg)
     loss_x, g_x = plain(model32, cfg32)
     rel_k, rel_p = leaf_rel(g_k, g_x), leaf_rel(g_p, g_x)
@@ -2850,7 +2870,8 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
         SERVE_BF16_MARGIN * abs(loss_p - loss_x),
         TRAIN_LOSS_FLOOR * abs(loss_x))
     res = {"phase": "17c", "arch": arch, "layers": 4, "seq": seq,
-           "grad_s_bf16": grad_s, "loss_kernel": loss_k, "loss_plain": loss_p,
+           "grad_s_bf16": grad_s, "grad_peak_gb_bf16": grad_peak_gb,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
            "loss_fp32": loss_x,
            "leaf_rel_l2_kernel_vs_fp32": dict(zip(names, rel_k)),
            "leaf_rel_l2_plain_vs_fp32": dict(zip(names, rel_p)),
@@ -2863,7 +2884,8 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
                          f"path {worse}, loss {loss_k} / {loss_p} / {loss_x}")
 
     # float32, TF32 off: the tight check
-    _, g_k32, _ = grads(model32, cfg32, "float32", None if ssm else "f32")
+    _, g_k32, _, _ = grads(model32, cfg32, "float32",
+                           None if ssm else "f32")
     rel32 = leaf_rel(g_k32, g_x)
     del g_k32
     _, g_r = plain(model32, cfg32, bf16_inputs=True)
@@ -2947,7 +2969,8 @@ def main() -> None:
                     "nvcc_s": _build.build_seconds(),
                     "library": str(_build.BUILD_DIR)}))
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or line.startswith("==")):
             log("  " + line.strip())
     log(f"device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f" (CUDA {torch.version.cuda})")
@@ -3195,7 +3218,8 @@ def main() -> None:
                 f: v for f, v in row.items() if f in (
                     "shape", "route", "source", "ms", "call_ms", "plain_ms",
                     "library_ms", "cuda_core_ms", "bound_ms", "bound_kind",
-                    "max_abs_err", "max_abs_err_vs_own_rounding", "timed")}
+                    "max_abs_err", "own_rounding",
+                    "max_abs_err_vs_own_rounding", "timed")}
                 for k, row in lm_timed.items() if k.startswith(name + "/")}
         kernels.append(entry)
     log(json.dumps({"serving": {

@@ -61,7 +61,7 @@ _SIGNATURES = {
     "flash_decode": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, *(_L,) * 12, _P),
     "wkv_chunked": (*(_P,) * 8, _I, _I, _I, _I, *(_L,) * 17, _P),
     # the two backward entries take their strides as a host array of int64
-    "flash_attention_bwd": (*(_P,) * 10, *(_I,) * 9, _F, _P, _P),
+    "flash_attention_bwd": (*(_P,) * 11, *(_I,) * 10, _F, _P, _P),
     "flash_attention_bwd_mma": (*(_P,) * 10, *(_I,) * 9, _F, _P, _P),
     "wkv_chunked_bwd": (*(_P,) * 15, *(_I,) * 4, _P, _P),
 }

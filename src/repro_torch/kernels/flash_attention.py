@@ -48,12 +48,13 @@ them, and the route never depends on a failure.
 
 The backward is K4b, the FlashAttention-2 algebra in three passes (no
 atomics), with ``flash_attention_bwd_plain`` its torch version.  It has two
-routes, picked by ``flash_bwd_route`` from the dtype alone: ``"mma"`` (bf16:
-``csrc/flash_attention_bwd_mma.cu``, every product on the tensor cores, P
-and dS split into bf16 high and low parts, whose rounding
-``flash_attention_bwd_mma_plain`` repeats in torch) and ``"f32"`` (float32:
-``csrc/flash_attention_bwd.cu``, float32 FMA on the CUDA cores).  The
-reference has no TPU kernel for it: its models
+routes, picked by ``flash_bwd_route`` from the dtype alone, both on the
+tensor cores by ``mma.sync``: ``"mma"`` (bf16:
+``csrc/flash_attention_bwd_mma.cu``, P and dS split into bf16 high and
+low parts, whose rounding ``flash_attention_bwd_mma_plain`` repeats in
+torch) and ``"f32"`` (float32: ``csrc/flash_attention_bwd.cu``, every
+product 3xTF32, whose rounding ``flash_attention_bwd_tf32_plain`` repeats
+in torch).  The reference has no TPU kernel for it: its models
 differentiate the jnp ``layers.attention`` (``_attention_banded`` for the
 window), which K4 stands in for, through XLA.  ``flash_attention`` is an
 autograd function when a gradient is to be taken; each row's log-sum-exp
@@ -71,7 +72,8 @@ from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_plain", "flash_attention", "flash_route",
            "flash_attention_bwd_plain", "flash_attention_bwd",
-           "flash_attention_bwd_mma_plain", "flash_bwd_route", "BWD_ROWS",
+           "flash_attention_bwd_mma_plain", "flash_attention_bwd_tf32_plain",
+           "flash_bwd_route", "BWD_ROWS",
            "flash_split_partials_plain", "flash_split_combine_plain",
            "flash_attention_split_plain", "D_MAX", "DECODE_ROWS",
            "DECODE_SPLIT", "NEG"]
@@ -80,7 +82,8 @@ D_MAX = 256        # largest head dim K4 takes
 DECODE_ROWS = 16   # rows per (batch, KV head) up to which route "decode" runs
 DECODE_SPLIT = 64  # keys per split of route "decode" (SPLIT in flash_decode.cu)
 NEG = -1.0e30      # the kernels' masked score, and m of a split that saw no key
-BWD_ROWS = 128     # K4b "mma": lse and D scratch rows padded to (ROWS_PAD)
+BWD_ROWS = 128     # K4b: lse and D scratch rows padded to (ROWS_PAD)
+BWD_SEG_ROWS = 4096  # K4b "f32": pass 2's rows a segment (SEG_ROWS)
 
 
 def _scale(d: int, scale: float | None) -> float:
@@ -348,14 +351,48 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: 10 explicit
+    mantissa bits, to nearest, ties away from zero (half an ulp added to
+    the magnitude's bits, the 13 low bits cleared)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """One TF32 product: both operands rounded once."""
+    return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _mm_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A 3xTF32 product as route "f32" runs it: each operand split into a
+    TF32 big part and the TF32 rounding of what it leaves out, and big .
+    big + big . small + small . big summed in float32 (small . small, ~2^-22
+    of a term, dropped).  The kernel hands the tensor cores the remainder
+    itself, which they read as TF32 (rounded here): either way it is within
+    2^-21 of the operand of the exact remainder."""
+    ab, bb = _tf32(a), _tf32(b)
+    a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+    return (torch.einsum(eq, ab, bb) + torch.einsum(eq, ab, b_s)
+            + torch.einsum(eq, a_s, bb))
+
+
 def _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
-                 rnd=None):
+                 rnd=None, mm=None):
     """``flash_attention_bwd_plain``'s algebra, with P rounded by ``rnd``
     before dV = P^T dO and dS before dQ and dK when ``rnd`` is given.  dV
-    depends only on P's rounding, dQ and dK only on dS's."""
+    depends only on P's rounding, dQ and dK only on dS's.  ``mm`` maps a
+    product's name (``"s"``, ``"dp"``, ``"dv"``, ``"dq"``, ``"dk"``) to the
+    function ``(equation, a, b)`` that runs it (``torch.einsum`` for a
+    name it lacks)."""
     if rnd is None:
         def rnd(x):
             return x
+    mm = mm or {}
+
+    def prod(name, eq, a, b):
+        return mm.get(name, torch.einsum)(eq, a, b)
+
     b, lq, hq, d = q.shape
     lk, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -363,7 +400,7 @@ def _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
     sc = _scale(d, scale)
     qf = q.float().reshape(b, lq, hkv, g, d)
     kf, vf = k.float(), v.float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kf) * sc
+    s = prod("s", "bqhgd,bkhd->bhgqk", qf, kf) * sc
     mask = _mask(lq, torch.arange(lk, device=q.device), valid, causal,
                  window)
     s = s.masked_fill(~mask, -math.inf)
@@ -372,15 +409,21 @@ def _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
     den = torch.exp(s - m).sum(dim=-1, keepdim=True)
     lse = m + torch.log(torch.where(den > 0, den, 1.0))
     p = torch.where(mask, torch.exp(s - lse), 0.0)
+    del s
     dof = do.float().reshape(b, lq, hkv, g, d)
     dsum = (dof * o.float().reshape(b, lq, hkv, g, d)).sum(-1)  # [b,q,h,g]
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", rnd(p), dof)
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dof, vf)
+    dv = prod("dv", "bhgqk,bqhgd->bkhd", rnd(p), dof)
+    dp = prod("dp", "bqhgd,bkhd->bhgqk", dof, vf)
     ds = rnd(p * (dp - dsum.permute(0, 2, 3, 1)[..., None]))
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf) * sc
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qf) * sc
+    del p, dp
+    dq = prod("dq", "bhgqk,bkhd->bqhgd", ds, kf) * sc
+    dk = prod("dk", "bhgqk,bqhgd->bkhd", ds, qf) * sc
     return (dq.reshape(b, lq, hq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+# route "f32"'s products: every one 3xTF32
+TF32_PRODUCTS = ("s", "dp", "dv", "dq", "dk")
 
 
 def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
@@ -421,6 +464,25 @@ def flash_attention_bwd_mma_plain(q: torch.Tensor, k: torch.Tensor,
                         _bf16_split)
 
 
+def flash_attention_bwd_tf32_plain(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, o: torch.Tensor,
+                                   do: torch.Tensor, *, causal: bool = True,
+                                   scale: float | None = None,
+                                   lk_valid: int | None = None,
+                                   window: int = 0
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """K4b route "f32"'s rounding in torch (used by the tests and
+    ``chip_smoke.py``, never by the wrapper): ``flash_attention_bwd_plain``'s
+    algebra with each of its five products (S = Q K^T, dP = dO V^T, dV =
+    P^T dO, dQ = dS K, dK = dS^T Q) run as 3xTF32 (``_mm_3xtf32``), as the
+    route runs them on the tensor cores.  A single TF32 rounding of the
+    operands would miss K4b's float32 tolerance
+    (``tools/k4b_rounding.py --float32`` measures by how much)."""
+    return _bwd_algebra(q, k, v, o, do, causal, scale, lk_valid, window,
+                        mm=dict.fromkeys(TF32_PRODUCTS, _mm_3xtf32))
+
+
 def flash_bwd_route(dtype: torch.dtype) -> str:
     """The route K4b takes on the card: ``"mma"`` for bf16, ``"f32"`` for
     float32."""
@@ -437,7 +499,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``o`` and the cotangent ``do``, in q's type.  CUDA tensors launch K4b
     on the route ``flash_bwd_route`` picks (three kernels, one for each
     row's log-sum-exp and D, one over key tiles for dK and dV, one over
-    query tiles for dQ; no atomics), CPU tensors run
+    query tiles for dQ; route "f32" sums dK and dV over segments of
+    ``BWD_SEG_ROWS`` rows and, when there are several, adds them in a
+    fourth; no atomics), CPU tensors run
     ``flash_attention_bwd_plain``.  Every call counts once in
     ``_build.LAUNCHES["flash_attention_bwd"]`` and once under
     ``"flash_attention_bwd/route:<route>"`` in ``_build.SITE_LAUNCHES``
@@ -466,24 +530,31 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
     route = flash_bwd_route(q.dtype)
-    # each row's log-sum-exp and D, rows (b, KV head, i * g + h); route
-    # "mma" pads each (b, KV head)'s rows to a multiple of BWD_ROWS
-    rows = lq * (hq // hkv)
-    if route == "mma":
-        rows = -(-rows // BWD_ROWS) * BWD_ROWS
+    # each row's log-sum-exp and D, rows (b, KV head, i * g + h), each (b,
+    # KV head)'s rows padded to a multiple of BWD_ROWS
+    rows = -(-lq * (hq // hkv) // BWD_ROWS) * BWD_ROWS
     lse = torch.empty(b * hkv * rows, dtype=torch.float32, device=q.device)
     dsum = torch.empty_like(lse)
     strides = (ctypes.c_longlong * 24)(*(
         s for x in (q, k, v, o, do, dq, dk, dv) for s in x.stride()[:3]))
     lib = _build.load()
-    ptrs = (dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.data_ptr(),
+    ptrs = [dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), dsum.data_ptr())
-    geo = (b, lq, lk, valid, hq, hkv, d, int(causal), window,
-           _scale(d, scale), strides, _build.stream_ptr(q.device))
-    entry = (lib.flash_attention_bwd_mma if route == "mma"
-             else lib.flash_attention_bwd)
-    code = entry(*ptrs, *geo)
+            lse.data_ptr(), dsum.data_ptr()]
+    geo = [b, lq, lk, valid, hq, hkv, d, int(causal), window]
+    if route == "mma":
+        entry = lib.flash_attention_bwd_mma
+    else:
+        # route "f32" sums dK and dV over segments of BWD_SEG_ROWS rows,
+        # each segment's partial sums in scratch when there is more than one
+        nseg = -(-lq * (hq // hkv) // BWD_SEG_ROWS)
+        part = (torch.empty(nseg * 2 * b * hkv * lk * d, dtype=torch.float32,
+                            device=q.device) if nseg > 1 else None)
+        entry = lib.flash_attention_bwd
+        ptrs.append(part.data_ptr() if part is not None else None)
+        geo.append(nseg)
+    code = entry(*ptrs, *geo, _scale(d, scale), strides,
+                 _build.stream_ptr(q.device))
     _build.LAUNCHES["flash_attention_bwd"] += 1
     _build.SITE_LAUNCHES[f"flash_attention_bwd/route:{route}"] += 1
     if site is not None:

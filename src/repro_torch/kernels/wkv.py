@@ -224,6 +224,86 @@ def _reduce_bonus(du: torch.Tensor, u: torch.Tensor,
     return out.to(u.dtype)
 
 
+def _bwd_chunks(r, k, v, log_w, do):
+    """The five [BH, T, n] operands as float32 [BH, NC, C, n] chunks (T
+    padded with zeros to a multiple of ``CHUNK``, as the forward pads it)
+    and each chunk's exponentials: e^(L - log w), e^-L, e^(Λ - L) and e^Λ
+    ([BH, NC, n]), L the inclusive cumsum of log w in the chunk and Λ its
+    last step."""
+    t, n = r.shape[-2:]
+    bh = math.prod(_lanes(r))
+    pad = (-t) % CHUNK
+    xs = [x.float().reshape(bh, t, n) for x in (r, k, v, log_w, do)]
+    if pad:
+        xs = [torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in xs]
+    xs = [x.reshape(bh, -1, CHUNK, n) for x in xs]
+    lcw = torch.cumsum(xs[3], dim=2)
+    total = lcw[:, :, -1:]
+    exps = (torch.exp(lcw - xs[3]), torch.exp(-lcw), torch.exp(total - lcw),
+            torch.exp(total[:, :, 0]))
+    return xs, exps
+
+
+def _bwd_state_sweep(k_s: torch.Tensor, vs: torch.Tensor, e_t: torch.Tensor,
+                     s: torch.Tensor) -> torch.Tensor:
+    """K5b's first sweep: the state at each chunk's start, [BH, NC, n, n],
+    from S_0 = ``s`` by S_{c+1} = diag(e^Λ) S_c + (k e^(Λ-L))^T v."""
+    starts = []
+    for c in range(k_s.shape[1]):
+        starts.append(s)
+        s = s * e_t[:, c, :, None] + torch.einsum("btn,btm->bnm", k_s[:, c],
+                                                  vs[:, c])
+    return torch.stack(starts, 1)
+
+
+def _bwd_cotangent_sweep(r_t: torch.Tensor, dos: torch.Tensor,
+                         e_t: torch.Tensor, ds: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K5b's second sweep, from the last chunk to the first: the cotangent
+    of each chunk's end state, [BH, NC, n, n], from ``ds`` (the final
+    state's) by dS_{c-1} = diag(e^Λ) dS_c + (r e^E)^T dO; and the cotangent
+    of the start state, ds0."""
+    ends = [None] * r_t.shape[1]
+    for c in reversed(range(r_t.shape[1])):
+        ends[c] = ds
+        ds = ds * e_t[:, c, :, None] + torch.einsum("btn,btm->bnm", r_t[:, c],
+                                                    dos[:, c])
+    return torch.stack(ends, 1), ds
+
+
+def _bwd_chunk_pass(xs, exps, uu, sc, dsc):
+    """K5b's chunk pass, batched over chunks: from each chunk's operands
+    ``xs`` ([BH, NC, C, n]), its exponentials, the bonus ``uu`` ([BH, 1, 1,
+    n]), its start state ``sc`` and its end cotangent ``dsc`` ([BH, NC, n,
+    n]), the chunk's (dr, dk, dv, dlog w), [BH, NC, C, n] each, and du,
+    [BH, n]."""
+    rs, ks, vs, _, dos = xs
+    e_r, e_k, e_s, e_t = exps
+    r_t, k_t, k_s = rs * e_r, ks * e_k, ks * e_s
+    tri = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool,
+                                device=rs.device), diagonal=-1)
+    a = torch.where(tri, torch.einsum("bctn,bcin->bcti", r_t, k_t), 0.0)
+    diag = torch.einsum("bctn,bctn->bct", rs * uu, ks)
+    da = torch.where(tri, torch.einsum("bctm,bcim->bcti", dos, vs), 0.0)
+    ddiag = torch.einsum("bctm,bctm->bct", dos, vs)
+    dv = torch.einsum("bcti,bctm->bcim", a, dos) + diag[..., None] * dos + \
+        torch.einsum("bctn,bcnm->bctm", k_s, dsc)
+    dr_t = torch.einsum("bcti,bcin->bctn", da, k_t) + \
+        torch.einsum("bctm,bcnm->bctn", dos, sc)
+    dk_t = torch.einsum("bcti,bctn->bcin", da, r_t)
+    dk_s = torch.einsum("bctm,bcnm->bctn", vs, dsc)
+    g_r, g_k, g_s = dr_t * r_t, dk_t * k_t, dk_s * k_s
+    dr = dr_t * e_r + ddiag[..., None] * uu * ks
+    dk = dk_t * e_k + dk_s * e_s + ddiag[..., None] * uu * rs
+    suffix = torch.flip(torch.cumsum(torch.flip(g_r, [2]), 2), [2])
+    suffix_k = torch.flip(torch.cumsum(torch.flip(g_k, [2]), 2), [2])
+    state = e_t * (sc * dsc).sum(-1)                        # [BH, NC, n]
+    dw = (suffix - g_r) - suffix_k + (torch.cumsum(g_s, 2) - g_s) + \
+        state[:, :, None]
+    du = torch.einsum("bct,bctn->bn", ddiag, rs * ks)
+    return dr, dk, dv, dw, du
+
+
 def wkv_chunked_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           log_w: torch.Tensor, u: torch.Tensor,
                           s0: torch.Tensor | None, do: torch.Tensor,
@@ -233,86 +313,47 @@ def wkv_chunked_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``ds`` of the final state (zero when None): ``(dr, dk, dv, dlog_w, du,
     ds0)``, ``du`` in u's shape and ``ds0`` None when ``s0`` is.
 
-    The chunk algebra run backward.  A forward sweep recomputes the
-    chunk-start states S_c; then, from the last chunk to the first, with
-    L the inclusive cumsum of log w in the chunk, E = L - log w, Λ = L_C,
-    r~ = r e^E, k~ = k e^-L, k^ = k e^(Λ-L), A = r~ k~^T (strictly lower)
-    and dS the cotangent of the chunk's end state:
+    The chunk algebra run backward, in K5b's three passes.  With L the
+    inclusive cumsum of log w in a chunk, E = L - log w, Λ = L_C, r~ = r
+    e^E, k~ = k e^-L, k^ = k e^(Λ-L) and A = r~ k~^T (strictly lower):
 
-        dA = (dO V^T) strictly lower,  dv = A^T dO + diag dO + k^ dS
-        dr~ = dA k~ + dO S_c^T,  dk~ = dA^T r~,  dk^ = V dS^T
+    1. a state sweep (``_bwd_state_sweep``), forward: each chunk's start
+       state S_c, by S_{c+1} = diag(e^Λ) S_c + k^^T v;
+    2. a cotangent sweep (``_bwd_cotangent_sweep``), backward: the
+       cotangent dS_c of each chunk's end state, by dS_{c-1} = diag(e^Λ)
+       dS_c + r~^T dO from dS_T = ``ds``; what it carries past chunk 0 is
+       ds0;
+    3. the chunk pass (``_bwd_chunk_pass``), every chunk at once:
+
+        dA = (dO V^T) strictly lower,  dv = A^T dO + diag dO + k^ dS_c
+        dr~ = dA k~ + dO S_c^T,  dk~ = dA^T r~,  dk^ = V dS_c^T
         dr = dr~ e^E + (dO.v) u k,  dk = dk~ e^-L + dk^ e^(Λ-L) + (dO.v) u r
         dlog_w_j = sum_{t>j} dr~ r~ - sum_{t>=j} dk~ k~ + sum_{t<j} dk^ k^
-                   + e^Λ rowsum(S_c o dS)
-        dS <- diag(e^Λ) dS + r~^T dO
+                   + e^Λ rowsum(S_c o dS_c)
 
-    (the last line carries dS to the previous chunk; dS after chunk 0 is
-    ds0).  Ragged T is padded as the forward pads it; the padded steps
-    have r = k = v = dO = 0 and add nothing."""
+    and du = sum over every step of (dO.v) r k.  Ragged T is padded as the
+    forward pads it; the padded steps have r = k = v = dO = 0 and add
+    nothing."""
     lead, (t, n) = _lanes(r), r.shape[-2:]
     bh = math.prod(lead)
-    uu = _bonus(u, lead, n).reshape(bh, 1, n)
-    pad = (-t) % CHUNK
-    xs = [x.float().reshape(bh, t, n) for x in (r, k, v, log_w, do)]
-    if pad:
-        xs = [torch.nn.functional.pad(x, (0, 0, 0, pad)) for x in xs]
-    rs, ks, vs, ws, dos = xs
-    s = (torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
-         if s0 is None else s0.float().reshape(bh, n, n))
-    tri = torch.tril(torch.ones((CHUNK, CHUNK), dtype=torch.bool,
-                                device=r.device), diagonal=-1)
-    starts = []
-    for c0 in range(0, t + pad, CHUNK):          # the chunk-start states
-        starts.append(s)
-        kk, vv, ww = (x[:, c0:c0 + CHUNK] for x in (ks, vs, ws))
-        lcw = torch.cumsum(ww, dim=1)
-        total = lcw[:, -1:]
-        s = s * torch.exp(total[:, 0])[..., None] + \
-            torch.einsum("btn,btm->bnm", kk * torch.exp(total - lcw), vv)
-    dstate = (torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
-              if ds is None else ds.float().reshape(bh, n, n))
-    grads = {key: [] for key in ("r", "k", "v", "w")}
-    du = torch.zeros((bh, n), dtype=torch.float32, device=r.device)
-    for c in reversed(range(len(starts))):
-        c0 = c * CHUNK
-        rr, kk, vv, ww, dd = (x[:, c0:c0 + CHUNK] for x in xs)
-        sc = starts[c]
-        lcw = torch.cumsum(ww, dim=1)
-        total = lcw[:, -1:]
-        e_r, e_k, e_s = (torch.exp(lcw - ww), torch.exp(-lcw),
-                         torch.exp(total - lcw))
-        e_t = torch.exp(total[:, 0])                          # [BH, n]
-        r_t, k_t, k_s = rr * e_r, kk * e_k, kk * e_s
-        a = torch.where(tri, torch.einsum("btn,bin->bti", r_t, k_t), 0.0)
-        diag = torch.einsum("btn,btn->bt", rr * uu, kk)
-        da = torch.where(tri, torch.einsum("btm,bim->bti", dd, vv), 0.0)
-        ddiag = torch.einsum("btm,btm->bt", dd, vv)
-        dv = torch.einsum("bti,btm->bim", a, dd) + diag[..., None] * dd + \
-            torch.einsum("btn,bnm->btm", k_s, dstate)
-        dr_t = torch.einsum("bti,bin->btn", da, k_t) + \
-            torch.einsum("btm,bnm->btn", dd, sc)
-        dk_t = torch.einsum("bti,btn->bin", da, r_t)
-        dk_s = torch.einsum("btm,bnm->btn", vv, dstate)
-        g_r, g_k, g_s = dr_t * r_t, dk_t * k_t, dk_s * k_s
-        grads["r"].append(dr_t * e_r + ddiag[..., None] * uu * kk)
-        grads["k"].append(dk_t * e_k + dk_s * e_s + ddiag[..., None] * uu * rr)
-        grads["v"].append(dv)
-        suffix = torch.flip(torch.cumsum(torch.flip(g_r, [1]), 1), [1])
-        suffix_k = torch.flip(torch.cumsum(torch.flip(g_k, [1]), 1), [1])
-        state = e_t * (sc * dstate).sum(-1)                   # [BH, n]
-        grads["w"].append((suffix - g_r) - suffix_k
-                          + (torch.cumsum(g_s, 1) - g_s) + state[:, None])
-        du = du + torch.einsum("bt,btn->bn", ddiag, rr * kk)
-        dstate = dstate * e_t[..., None] + \
-            torch.einsum("btn,btm->bnm", r_t, dd)
+    uu = _bonus(u, lead, n).float().reshape(bh, 1, 1, n)
+    xs, exps = _bwd_chunks(r, k, v, log_w, do)
+    rs, ks, vs, _, dos = xs
+    e_r, _, e_s, e_t = exps
+    zeros = torch.zeros((bh, n, n), dtype=torch.float32, device=r.device)
+    sc = _bwd_state_sweep(ks * e_s, vs, e_t, zeros if s0 is None
+                          else s0.float().reshape(bh, n, n))
+    dsc, ds0 = _bwd_cotangent_sweep(rs * e_r, dos, e_t, zeros if ds is None
+                                    else ds.float().reshape(bh, n, n))
+    grads = _bwd_chunk_pass(xs, exps, uu, sc, dsc)
 
-    def out(key, like):
-        g = torch.cat(grads[key][::-1], dim=1)[:, :t]
-        return g.reshape(like.shape).to(like.dtype)
+    def out(g, like):
+        return g.reshape(bh, -1, n)[:, :t].reshape(like.shape).to(like.dtype)
 
-    du = _reduce_bonus(du.reshape(*lead, n), u, lead)
-    ds0 = None if s0 is None else dstate.reshape(s0.shape).to(s0.dtype)
-    return (out("r", r), out("k", k), out("v", v), out("w", log_w), du, ds0)
+    dr, dk, dv, dw = (out(g, x) for g, x in zip(grads, (r, k, v, log_w)))
+    du = _reduce_bonus(grads[4].reshape(*lead, n), u, lead)
+    ds0 = None if s0 is None else ds0.reshape(s0.shape).to(s0.dtype)
+    return dr, dk, dv, dw, du, ds0
 
 
 def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -321,9 +362,12 @@ def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     ds: torch.Tensor | None = None) -> tuple:
     """The gradients of ``wkv_chunked``: ``(dr, dk, dv, dlog_w, du, ds0)``
     (see ``wkv_chunked_bwd_plain``).  CUDA tensors launch K5b
-    (``csrc/wkv_bwd.cu``: one block a lane, a forward sweep that writes the
-    chunk-start states to scratch the wrapper allocates, [lanes, ceil(T /
-    32), n, n] float32, then a reverse sweep; no atomics), CPU tensors run
+    (``csrc/wkv_bwd.cu``, the plain version's three passes: both sweeps at
+    once, one block a lane each, writing the chunk-start states and the
+    chunk-end cotangents to scratch the wrapper allocates, [lanes, ceil(T /
+    32), n, n4] float32 each with n4 = n rounded up to a multiple of 4,
+    then one block a (lane, chunk), whose du partials, [lanes, ceil(T /
+    32), 64], are added in chunk order; no atomics), CPU tensors run
     ``wkv_chunked_bwd_plain``.  dr, dk, dv and dlog_w take their input's
     layout; du is reduced to u's shape by a sum over the lanes that share
     it.  Every call counts once in ``_build.LAUNCHES["wkv_chunked_bwd"]``."""
@@ -346,8 +390,9 @@ def wkv_chunked_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     outs = [torch.empty_like(x) for x in ins[:4]]
     lanes = math.prod(lead)
     nb, nh = (lead[0], 1) if len(lead) == 1 else lead
-    scratch = torch.empty(lanes * -(-t // CHUNK) * n * n, dtype=torch.float32,
-                          device=r.device)
+    n4 = -(-n // 4) * 4
+    scratch = torch.empty(lanes * -(-t // CHUNK) * (2 * n * n4 + N_MAX),
+                          dtype=torch.float32, device=r.device)
     du = torch.empty((lanes, n), dtype=torch.float32, device=r.device)
     s_in = s0.float().contiguous() if s0 is not None else None
     ds_in = ds.float().contiguous() if ds is not None else None

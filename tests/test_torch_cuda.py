@@ -753,16 +753,22 @@ def _scale(grads):
     (1, 130, 130, 2, 1, 64, True, None, 1),     # window 1
     (2, 150, 150, 28, 4, 128, True, None, 0),   # g = 7 (qwen2-vl-7b)
     (1, 180, 260, 10, 1, 256, True, 240, 90),   # D = 256, g = 10, Lq != Lk
+    (1, 700, 700, 12, 2, 64, True, None, 300),  # 4,200 rows: 2 segments (f32)
 ])
 def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, b, lq, lk, hq,
                                                 hkv, d, causal, lk_valid,
                                                 window):
     """K4b against ``flash_attention_bwd_plain`` on the same inputs (the
     output from the plain forward), one call counted on the dtype's route;
-    a second call gives the same bits (no atomics).  Route "mma" (bf16) is
-    also held against ``flash_attention_bwd_mma_plain``, which rounds P and
-    dS as it does: the same float32 algebra summed in another order, so one
-    bf16 ulp (2^-7 |x|) and 1e-4 of the scale apart."""
+    a second call gives the same bits (no atomics).  Each route is also
+    held against the plain version of its own rounding: route "mma" (bf16)
+    against ``flash_attention_bwd_mma_plain``, which rounds P and dS as it
+    does (the same float32 algebra summed in another order, so one bf16 ulp
+    (2^-7 |x|) and 1e-4 of the scale apart); route "f32" against
+    ``flash_attention_bwd_tf32_plain``, which runs every product as 3xTF32
+    as it does (the same split products, summed in another order and by
+    the tensor cores' float32 accumulation: the float32 tolerance, which
+    one TF32 rounding of any product misses)."""
     q = _normal(31, b, lq, hq, d).to(cuda, dtype)
     k = _normal(32, b, lk, hkv, d).to(cuda, dtype)
     v = _normal(33, b, lk, hkv, d).to(cuda, dtype)
@@ -787,11 +793,15 @@ def test_cuda_flash_attention_bwd_matches_plain(cuda, dtype, b, lq, lk, hq,
         _close_grad(g, w, dtype, scale)
     if route == "mma":
         emu = p_flash.flash_attention_bwd_mma_plain(q, k, v, o, do, **kw)
-        for g, w in zip(got, emu):
-            sc = scale if scale is not None else float(w.float().abs().max())
-            torch.testing.assert_close(g.float(), w.float(),
-                                       atol=1e-4 * max(sc, 1e-30),
-                                       rtol=2.0 ** -7)
+        own_atol, own_rtol = 1e-4, 2.0 ** -7
+    else:
+        emu = p_flash.flash_attention_bwd_tf32_plain(q, k, v, o, do, **kw)
+        own_atol, own_rtol = 1e-4, 1e-4
+    for g, w in zip(got, emu):
+        sc = scale if scale is not None else float(w.float().abs().max())
+        torch.testing.assert_close(g.float(), w.float(),
+                                   atol=own_atol * max(sc, 1e-30),
+                                   rtol=own_rtol)
 
 
 @pytest.mark.cuda
@@ -857,12 +867,14 @@ def _wkv_views(seed, b, t, h, n, cuda):
     (2, 3, 70, 32, True, True),       # ragged T
     (1, 1, 1, 8, True, True),         # one step
     (2, 2, 33, 12, False, True),      # n = 12
+    (1, 2, 31, 24, True, True),       # one ragged chunk, n = 24
     (8, 8, 1000, 64, True, False),    # ragged, the model's head size
 ])
 def test_cuda_wkv_bwd_matches_plain(cuda, b, h, t, n, with_state, with_ds):
     """K5b against ``wkv_chunked_bwd_plain`` on [B, H, T, n] views with a
     per-head bonus: dr, dk, dv, dlog_w in the inputs' layout, du summed to
-    [H, n], ds0; one call counted."""
+    [H, n], ds0; one call counted, and a second call gives the same bits
+    (no atomics: every sum in a fixed order)."""
     r, k, v, log_w = _wkv_views(50, b, t, h, n, cuda)
     u = _normal(55, h, n).to(cuda) * 0.5
     s0 = _normal(56, b, h, n, n).to(cuda) * 0.3 if with_state else None
@@ -872,6 +884,8 @@ def test_cuda_wkv_bwd_matches_plain(cuda, b, h, t, n, with_state, with_ds):
     got = p_wkv.wkv_chunked_bwd(r, k, v, log_w, u, s0, do, ds)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["wkv_chunked_bwd"] == before + 1
+    again = p_wkv.wkv_chunked_bwd(r, k, v, log_w, u, s0, do, ds)
+    assert all(a is c or torch.equal(a, c) for a, c in zip(got, again))
     want = p_wkv.wkv_chunked_bwd_plain(r, k, v, log_w, u, s0, do, ds)
     assert (got[5] is None) == (s0 is None)
     assert got[0].stride() == r.stride() and got[4].shape == (h, n)
