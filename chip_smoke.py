@@ -219,6 +219,7 @@ import torch  # noqa: E402
 FP32_INSTR_PER_S = 33.5e12   # 67 TFLOP/s fp32 peak (H100 SXM) as instructions
 FP32_FLOP_PER_S = 67e12      # fp32 outside the tensor cores (H100 SXM)
 BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense (H100 SXM)
+TF32_FLOP_PER_S = 495e12     # TF32 tensor cores, dense (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TIMING_RUNS = 30
 # Fig. 5 runs a point in phase 10: the paper's 10 halved, so that phases
@@ -1456,7 +1457,11 @@ def phase_lifecycle(graphs, vl2, lp, CertifiedEngine, runs, pool) -> dict:
 # K4's output is bf16 on the main path: kernel and plain version compute in
 # float32 and round to bf16, so they may differ by one bf16 ulp (<= |x|/128)
 K4_BF16_TOL = (1e-3, 8e-3)
-# float32 K4: the same float32 math summed in another order
+# float32 K4 (route "f32"): S = Q K^T and P V on the tensor cores as 3xTF32
+# (each operand split into a TF32 big part and the remainder, ~21 bits kept,
+# the tensor cores' sums truncating), the softmax in float32; one TF32
+# rounding of either product misses this by ~20x, 3xTF32 sits at <= 0.06 of
+# it (tests/test_torch_flash_f32.py, CPU)
 K4_F32_TOL = (2e-5, 1e-4)
 K4_SOURCES = {"mma": "src/repro_torch/csrc/flash_attention_mma.cu",
               "decode": "src/repro_torch/csrc/flash_decode.cu",
@@ -1539,19 +1544,47 @@ def visible_pairs(lq: int, valid: int, window: int = 0) -> int:
     return pairs
 
 
-def earlier_k4(lib, q, k, v, lk_valid):
-    """One call of the CUDA-core K4 entry (``csrc/flash_attention.cu``, route
-    "f32") on bf16 inputs, as every bf16 call ran before the tensor-core
-    and split-KV routes: a timing yardstick only."""
+def ptxas_report(source: str) -> dict[str, dict]:
+    """Registers and spill bytes ``ptxas`` reported for each kernel of the
+    library's ``source`` (``-Xptxas -v`` in the build log), by mangled
+    name."""
     from repro_torch.kernels import _build
-    b, lq, hq, d = q.shape
-    out = torch.empty_like(q)
-    args = (out.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), 1, b,
-            lq, lk_valid, hq, k.shape[2], d, 1, 0, 1.0 / d ** 0.5,
-            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-            *out.stride()[:3], _build.stream_ptr(q.device))
-    return lambda: _build.check(lib.flash_attention(*args),
-                                "flash_attention (CUDA cores)")
+    log_text, head = _build.build_log(), f"== {source}\n"
+    if head not in log_text:
+        return {}
+    text = log_text.split(head, 1)[1].split("\n== ")[0]
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split()
+                    if w.isdigit()]
+            out[name]["spill_bytes"] = nums[1] + nums[2]
+        elif name and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def own_rounding(kfa, route, got, q, k, v, valid, window, label) -> dict:
+    """Route "f32" also against its own rounding
+    (``flash_attention_tf32_plain``) under K4_F32_TOL; the fields a row
+    records, none on the other routes."""
+    if route != "f32":
+        return {}
+    emu = kfa.flash_attention_tf32_plain(q, k, v, causal=True, lk_valid=valid,
+                                         window=window)
+    err = close(f"K4 {label} (against flash_attention_tf32_plain)", got, emu,
+                K4_F32_TOL)
+    return {"own_rounding": "flash_attention_tf32_plain",
+            "max_abs_err_vs_own_rounding": err}
+
+
+def tf32_floor_ms(b: int, hq: int, d: int, pairs: int) -> float:
+    """Route "f32"'s 3xTF32 floor: 3 x 4 D tensor-core flops a visible
+    (query, key) pair and head at the card's TF32 rate."""
+    return 3 * 4.0 * d * pairs * b * hq / TF32_FLOP_PER_S * 1e3
 
 
 def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
@@ -1564,7 +1597,12 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
 
     out = {}
     b = 8
-    lib = _build.load()
+    # route "f32"'s kernels, one a padded head dim: none may spill
+    regs = ptxas_report("flash_attention.cu")
+    log(json.dumps({"k4_f32_ptxas": regs}))
+    if not regs or any(r.get("spill_bytes", 1) for r in regs.values()):
+        raise SystemExit(f"chip_smoke: K4 route f32 spills or was not "
+                         f"reported: {regs}")
     m128, m256, g1 = (24, 8, 128), (10, 1, 256), (24, 24, 64)
     m64, g7 = (24, 8, 64), (28, 4, 128)
     for key, label, lq, lk, valid, dtype, sets, (hq, hkv, d), window in (
@@ -1621,9 +1659,12 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         want = kfa.flash_attention_plain(q, k, v, causal=True,
                                          lk_valid=valid, window=window)
         err = close(f"K4 {label} (route {route})", got, want, tol)
+        del want
+        own = own_rounding(kfa, route, got, q, k, v, valid, window, label)
         # (query, key) pairs this input needs: causal, aligned to the end,
         # inside the band
-        flops = 4.0 * b * hq * d * visible_pairs(lq, valid, window)
+        pairs = visible_pairs(lq, valid, window)
+        flops = 4.0 * b * hq * d * pairs
         esize = q.element_size()
         nbytes = esize * (2 * b * lq * hq * d + 2 * b * valid * hkv * d)
         bnd, kind = flop_bound_ms(
@@ -1645,16 +1686,12 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
                "library_ms": time_ms([sdpa_call(*x, valid, window)
                                       for x in inputs]),
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
-               "tolerance": tol}
-        if dtype == torch.bfloat16 and (hq, hkv, d) == m128:
-            # the earlier design (float32 FMA on the CUDA cores, one block
-            # per 64 rows), called through its C entry on the same inputs:
-            # timed only, never counted and never on the path
-            row["cuda_core_ms"] = time_ms(
-                [earlier_k4(lib, *x, valid) for x in inputs])
+               "tolerance": tol, **own}
+        if route == "f32":
+            row["tf32_floor_ms"] = tf32_floor_ms(b, hq, d, pairs)
         log(json.dumps(row))
         out[f"flash_attention/{key}"] = row
-        del q, k, v, got, want, inputs
+        del q, k, v, got, inputs
 
     # the other shapes that the 4-layer float32 checks of phases 7 and 16
     # give K4 (prefill of the new families at L = 1000, every decode step),
@@ -1699,7 +1736,8 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
                "source": K4_SOURCES[route], "timed": False,
                "max_abs_err": close(f"K4 {label} (route {route})", got, want,
                                     tol),
-               "tolerance": tol}
+               "tolerance": tol,
+               **own_rounding(kfa, route, got, q, k, v, valid, 0, label)}
         log(json.dumps(row))
         out[f"flash_attention/{key}"] = row
         del q, k, v, got, want
@@ -3217,7 +3255,7 @@ def main() -> None:
             entry["shapes"] = {k.split("/", 1)[1]: {
                 f: v for f, v in row.items() if f in (
                     "shape", "route", "source", "ms", "call_ms", "plain_ms",
-                    "library_ms", "cuda_core_ms", "bound_ms", "bound_kind",
+                    "library_ms", "tf32_floor_ms", "bound_ms", "bound_kind",
                     "max_abs_err", "own_rounding",
                     "max_abs_err_vs_own_rounding", "timed")}
                 for k, row in lm_timed.items() if k.startswith(name + "/")}

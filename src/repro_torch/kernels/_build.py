@@ -55,7 +55,7 @@ _SIGNATURES = {
                     _L, _L, _L, _L, _L, _L, _L, _L, _I, _P),
     "fw_pivot": (_P, _I, _I, _L, _L, _P),
     "ell_relax_round": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "flash_attention": (_P, _P, _P, _P, *(_I,) * 9, _F, *(_L,) * 12, _P),
+    "flash_attention": (_P, _P, _P, _P, *(_I,) * 8, _F, *(_L,) * 12, _P),
     "flash_attention_mma": (_P, _P, _P, _P, *(_I,) * 8, _F, *(_L,) * 12,
                             _P),
     "flash_decode": (_P, _P, _P, _P, _P, *(_I,) * 10, _F, *(_L,) * 12, _P),

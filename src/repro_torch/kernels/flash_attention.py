@@ -31,8 +31,10 @@ routes, picked by ``flash_route`` from the dtype and the number of rows
   in split order.  ``flash_attention_split_plain`` is its algebra in torch.
 * ``"mma"`` (more rows, bf16: prefill): ``csrc/flash_attention_mma.cu``,
   Q.K^T and P.V on the tensor cores.
-* ``"f32"`` (more rows, float32): ``csrc/flash_attention.cu``, float32 FMA
-  on the CUDA cores.
+* ``"f32"`` (more rows, float32): ``csrc/flash_attention.cu``, Q.K^T and
+  P.V on the tensor cores as 3xTF32 (each operand split into a TF32 big
+  part and the remainder, three products summed in float32), whose
+  rounding ``flash_attention_tf32_plain`` repeats in torch.
 
 Prefill is bound by operations and decode by bytes; see the notes in the
 sources.  With a window, routes "mma" and "f32" start each block's key
@@ -71,6 +73,7 @@ import torch
 from repro_torch.kernels import _build
 
 __all__ = ["flash_attention_plain", "flash_attention", "flash_route",
+           "flash_attention_tf32_plain",
            "flash_attention_bwd_plain", "flash_attention_bwd",
            "flash_attention_bwd_mma_plain", "flash_attention_bwd_tf32_plain",
            "flash_bwd_route", "BWD_ROWS",
@@ -127,6 +130,45 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = p / torch.where(den > 0, den, 1.0)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return out.reshape(b, lq, hq, d).to(q.dtype)
+
+
+def _fwd_algebra(q, k, v, causal, scale, lk_valid, window, mm=None):
+    """Route "f32"'s forward in torch: S = Q K^T, the float32 softmax's
+    unnormalised P = exp(S - max), O = P V / sum P.  ``mm`` maps a
+    product's name (``"s"``, ``"pv"``) to the function ``(equation, a, b)``
+    that runs it (``torch.einsum`` for a name it lacks).  float32."""
+    mm = mm or {}
+    b, lq, hq, d = q.shape
+    lk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    valid = lk if lk_valid is None else lk_valid
+    qf = q.float().reshape(b, lq, hkv, g, d)
+    s = mm.get("s", torch.einsum)("bqhgd,bkhd->bhgqk", qf, k.float()) \
+        * _scale(d, scale)
+    mask = _mask(lq, torch.arange(lk, device=q.device), valid, causal,
+                 window)
+    s = s.masked_fill(~mask, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)   # a row that sees no key
+    p = torch.exp(s - m)
+    den = p.sum(dim=-1, keepdim=True)
+    out = mm.get("pv", torch.einsum)("bhgqk,bkhd->bqhgd", p, v.float())
+    den = den.permute(0, 3, 1, 2, 4)             # [b, q, h, g, 1]
+    out = out / torch.where(den > 0, den, 1.0)
+    return out.reshape(b, lq, hq, d)
+
+
+def flash_attention_tf32_plain(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, *, causal: bool = True,
+                               scale: float | None = None,
+                               lk_valid: int | None = None,
+                               window: int = 0) -> torch.Tensor:
+    """Route "f32"'s rounding in torch (used by the tests and
+    ``chip_smoke.py``, never on a path): ``flash_attention_plain``'s
+    function with S = Q K^T and P V as 3xTF32 (``_mm_3xtf32``), as the
+    kernel runs them, the softmax in float32.  float32 in and out."""
+    return _fwd_algebra(q, k, v, causal, scale, lk_valid, window,
+                        mm=dict.fromkeys(("s", "pv"), _mm_3xtf32))
 
 
 def flash_route(dtype: torch.dtype, lq: int, g: int) -> str:
@@ -329,7 +371,7 @@ def _flash_forward(q, k, v, causal, scale, valid, window, site):
                                        int(causal), window, sc, *strides,
                                        stream)
     else:
-        code = lib.flash_attention(*ptrs, 0, b, lq, valid, hq, hkv, d,
+        code = lib.flash_attention(*ptrs, b, lq, valid, hq, hkv, d,
                                    int(causal), window, sc, *strides, stream)
     _build.LAUNCHES["flash_attention"] += 1
     _build.SITE_LAUNCHES[f"flash_attention/route:{route}"] += 1
@@ -365,12 +407,13 @@ def _mm_tf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def _mm_3xtf32(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """A 3xTF32 product as route "f32" runs it: each operand split into a
-    TF32 big part and the TF32 rounding of what it leaves out, and big .
-    big + big . small + small . big summed in float32 (small . small, ~2^-22
-    of a term, dropped).  The kernel hands the tensor cores the remainder
-    itself, which they read as TF32 (rounded here): either way it is within
-    2^-21 of the operand of the exact remainder."""
+    """A 3xTF32 product as K4's and K4b's routes "f32" run it: each
+    operand split into a TF32 big part and the TF32 rounding of what it
+    leaves out, and big . big + big . small + small . big summed in float32
+    (small . small, ~2^-22 of a term, dropped).  The kernels hand the
+    tensor cores the remainder itself, which they read as TF32 (rounded
+    here): either way it is within 2^-21 of the operand of the exact
+    remainder."""
     ab, bb = _tf32(a), _tf32(b)
     a_s, b_s = _tf32(a - ab), _tf32(b - bb)
     return (torch.einsum(eq, ab, bb) + torch.einsum(eq, ab, b_s)

@@ -587,6 +587,44 @@ def test_cuda_flash_attention_window_and_head_dim_256(
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk,hq,hkv,d,causal,lk_valid,window,view", [
+    (2, 200, 200, 6, 2, 128, True, None, 0, False),   # g = 3, ragged rows
+    (1, 130, 130, 10, 1, 256, True, None, 33, False),  # g = 10, D = 256, band
+    (1, 90, 90, 2, 1, 64, True, None, 1, False),       # window 1
+    (1, 80, 120, 4, 4, 16, False, 100, 0, False),      # not causal, g = 1
+    (1, 100, 100, 2, 1, 64, True, 40, 0, False),       # rows that see no key
+    (2, 50, 50, 4, 1, 12, True, None, 0, False),       # d = 12: plain loads
+    (1, 60, 60, 6, 2, 64, True, None, 0, True),        # q a strided view
+])
+def test_cuda_flash_attention_f32_matches_its_rounding(
+        cuda, b, lq, lk, hq, hkv, d, causal, lk_valid, window, view):
+    """Route "f32" (3xTF32 on the tensor cores) against both plain versions:
+    the float32 one and the route's own rounding
+    (``flash_attention_tf32_plain``), under K4's float32 tolerance."""
+    if view:
+        proj = _normal(24, b, lq, 2 * hq * d).to(cuda)
+        q = proj[..., :hq * d].view(b, lq, hq, d)
+    else:
+        q = _normal(24, b, lq, hq, d).to(cuda)
+    k = _normal(25, b, lk, hkv, d).to(cuda)
+    v = _normal(26, b, lk, hkv, d).to(cuda)
+    kw = dict(causal=causal, lk_valid=lk_valid, window=window)
+    assert p_flash.flash_route(torch.float32, lq, hq // hkv) == "f32"
+    before = _build.SITE_LAUNCHES["flash_attention/route:f32"]
+    got = p_flash.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert _build.SITE_LAUNCHES["flash_attention/route:f32"] == before + 1
+    assert torch.isfinite(got).all()
+    qc = q.contiguous()
+    _close(got, p_flash.flash_attention_plain(qc, k, v, **kw), torch.float32)
+    _close(got, p_flash.flash_attention_tf32_plain(qc, k, v, **kw),
+           torch.float32)
+    valid = lk if lk_valid is None else lk_valid
+    if causal and valid < lq:
+        assert float(got[:, :lq - valid].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("lq", [1, 40])
 def test_cuda_flash_attention_reads_a_cache_slice_in_place(cuda, lq):
     """A layer's [B, max_len, Hkv, D] slice of a stacked cache goes in as
