@@ -171,7 +171,19 @@ Phases (any failure exits non-zero; no phase catches and continues):
    bf16-rounding attention or WKV is shown to miss; one profiled train step
    each (device ms of GEMMs, K4/K5, K4b/K5b, the optimizer, the rest; idle
    share);
-18. summary — one JSON line with every kernel, then the device line last.
+18. the sharded train step — (a) a one-rank NCCL world and a (1, 1, 1)
+   ("pod", "data", "model") ``DeviceMesh`` on the card: musicgen-medium at
+   full width, 4 layers, float32, 8 x 1024 (K4 and K4b on route "f32" at
+   D = 64), one ``make_train_step`` with the shard function,
+   ``state_specs`` placements and ``--pod-compress`` at npod 1, against
+   the one-process step on the same parameters (loss, grad norm, every
+   leaf and the error-feedback buffer after one AdamW step, the A8.2
+   float32 rules; whether the bits are equal is printed); 8 K4 and 4 K4b
+   launches, all on route "f32".  (b), two ranks of the one card over
+   gloo (NCCL takes one rank a GPU), is left out: gloo's all-gather of
+   CUDA tensors through the functional collectives DTensor issues crashes
+   the ranks on the card's torch (``tools/gloo_cuda_probe.py``);
+19. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -181,7 +193,8 @@ Launch counts are reset just before each path's run (phase 3's, each of
 phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
 solves, phase 10's figure, phase 11's two streamed closures, each search
 of phases 12-13, phase 13's figure, each engine's pile of phase 14 and
-each call of phase 15, phase 17b's run and each gradient of phase 17c)
+each call of phase 15, phase 17b's run, each gradient of phase 17c and
+phase 18a's sharded step)
 and read just after it; a kernel
 of a path that was not launched fails the run.  The summary reports every
 path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
@@ -2956,6 +2969,226 @@ def phase_train_family(arch: str, seq: int, seed: int, runs: list) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the sharded train step (phase 18)
+# ---------------------------------------------------------------------------
+
+# musicgen-medium at full width, 4 layers, float32 (TF32 off): K4 and K4b
+# on route "f32" at D = 64, 24/24 heads
+SHARD_ARCH, SHARD_LAYERS, SHARD_SEQ, SHARD_SEED = "musicgen-medium", 4, 1024, 18
+# the A8.2 float32 rules (tests/_torch_train_parity.py): metrics within
+# rtol 1e-5; after one AdamW step (lr 1e-3) the parameters within rtol
+# 1e-5, atol 1e-6 where the step is insensitive to the gradient's noise
+# (here int8-compressed: one quantisation step, 1/127 of the leaf's max,
+# the parity file's POD_NOISE_REL), elsewhere within 2 lr; the bf16
+# error-feedback buffers within one quantisation step
+SHARD_LR, ADAM_B1, ADAM_EPS = 1e-3, 0.9, 1e-8
+SHARD_METRIC_RTOL, SHARD_PARAM_RTOL, SHARD_PARAM_ATOL = 1e-5, 1e-5, 1e-6
+SHARD_NOISE_REL = 1 / 127
+# K4 launches of a step (the forward and its recomputation under remat)
+# and K4b launches, per rank, all on route "f32"
+SHARD_K4, SHARD_K4B = 2 * SHARD_LAYERS, SHARD_LAYERS
+
+
+def shard_inputs(device: str = "cuda", smoke: bool = False):
+    """(config, parameters on ``device``, batch) of phase 18; ``smoke``
+    takes the small config and 32 positions (a rehearsal on the CPU)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.data import make_batch
+    from repro_torch.models import model as model_lib
+    cfg = get_smoke(SHARD_ARCH) if smoke else dataclasses.replace(
+        get_config(SHARD_ARCH), num_layers=SHARD_LAYERS)
+    cfg = dataclasses.replace(cfg, dtype="float32")
+    params = model_lib.get_model(cfg, device).init_params(SHARD_SEED)
+    return cfg, params, make_batch(cfg, TRAIN_BATCH, 32 if smoke else
+                                   SHARD_SEQ, 0, SHARD_SEED)
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def one_process_step(cfg, params, batch, npod: int = 1):
+    """The one-process ``make_train_step`` with ``--pod-compress`` at
+    ``npod`` (in place on ``params``): (parameters, {"m", "ef_error"},
+    metrics)."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamW
+    from repro_torch import tree as tree_lib
+    opt = AdamW(lr=SHARD_LR)
+    state = opt.init(params)
+    state["ef_error"] = model_lib.init_ef_error(params, npod)
+    dev = tree_lib.leaves(params)[0].device
+    step = model_lib.make_train_step(cfg, opt, pod_compress=True, npod=npod,
+                                     device=dev)
+    params, state, metrics = step(params, state, batch)
+    return (params, {k: state[k] for k in ("m", "ef_error")},
+            {k: float(v) for k, v in metrics.items()})
+
+
+def sharded_step(cfg, params, batch, mesh, rules, npod: int = 1):
+    """One ``make_train_step`` with ``--pod-compress`` at ``npod`` (the
+    mesh's "pod" axis, or 1), the parameters and AdamW state placed by
+    ``state_specs`` on ``mesh``: (parameters, state, metrics, launches,
+    sites, seconds), the trees gathered whole.  On the card no plain
+    version may run."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel import sharding as sh
+    dev = tree_lib.leaves(params)[0].device
+    opt = AdamW(lr=SHARD_LR)
+    state = opt.init(params)
+    state["ef_error"] = model_lib.init_ef_error(params, npod)
+    params = sh.distribute(params, sh.state_specs(params, mesh, "param"),
+                           mesh)
+    state = sh.distribute(state, sh.state_specs(state, mesh, "opt"), mesh)
+    has_pod = "pod" in mesh.mesh_dim_names
+    step = model_lib.make_train_step(
+        cfg, opt, sh.make_shard_fn(mesh, rules), pod_compress=True, npod=npod,
+        unshard_pod=sh.unshard_pod if has_pod else None, device=dev)
+    _sync(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with (no_plain_kernels(kfa, kwkv) if dev.type == "cuda"
+          else contextlib.nullcontext()):
+        params, state, metrics = step(params, state, batch)
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+
+    def whole(tree):
+        return tree_lib.map_tree(
+            lambda x: x.full_tensor() if sh.is_dtensor(x) else x, tree)
+
+    return (whole(params), whole({k: state[k] for k in ("m", "ef_error")}),
+            {k: float(v) for k, v in metrics.items()}, counts, sites, secs)
+
+
+def check_shard_launches(label: str, counts: dict, sites: dict) -> None:
+    want = {"flash_attention/route:f32": SHARD_K4,
+            "flash_attention_bwd/route:f32": SHARD_K4B}
+    if counts["flash_attention"] != SHARD_K4 or \
+            counts["flash_attention_bwd"] != SHARD_K4B or \
+            any(sites.get(k) != v for k, v in want.items()):
+        raise SystemExit(f"chip_smoke: {label}: launches {counts} {sites}, "
+                         f"want K4 {SHARD_K4} and K4b {SHARD_K4B} on route "
+                         "f32")
+
+
+def check_a82(label: str, got: tuple, want: tuple) -> dict:
+    """(params, state, metrics) of a sharded step against the one-process
+    step's, under the A8.2 float32 rules above; also whether every bit is
+    the same."""
+    from repro_torch import tree as tree_lib
+    gp, gs, gm = got
+    wp, ws, wm = want
+    bad = [k for k in wm if not abs(gm[k] - wm[k])
+           <= 1e-7 + SHARD_METRIC_RTOL * abs(wm[k])]
+    worst_sure, worst_any, off = 0.0, 0.0, []
+    for name, g, w, m in zip(tree_lib.paths(wp), tree_lib.leaves(gp),
+                             tree_lib.leaves(wp), tree_lib.leaves(ws["m"])):
+        gr = m.double().abs() / (1 - ADAM_B1)
+        noise = SHARD_NOISE_REL * max(float(gr.max()), 1e-30)
+        sure = (gr > 10 * noise) & (SHARD_LR * ADAM_EPS * noise / gr ** 2
+                                    < SHARD_PARAM_ATOL / 2)
+        d = (g.double() - w.double()).abs()
+        lim = SHARD_PARAM_ATOL + SHARD_PARAM_RTOL * w.double().abs()
+        over = float((d - lim)[sure].max()) if bool(sure.any()) else -1.0
+        worst_sure = max(worst_sure, float(d[sure].max())
+                         if bool(sure.any()) else 0.0)
+        worst_any = max(worst_any, float(d.max()))
+        if over > 0 or float(d.max()) > 2 * SHARD_LR * (1 + 1e-3):
+            off.append(name)
+    ef_off = []
+    for name, g, w in zip(tree_lib.paths(ws["ef_error"]),
+                          tree_lib.leaves(gs["ef_error"]),
+                          tree_lib.leaves(ws["ef_error"])):
+        top = float(w.float().abs().max())
+        err = (g.float() - w.float()).abs()
+        if float(err.max()) > 2.5 * top + 1e-30 or \
+                float((err > 2.0 ** -7 * top).float().mean()) >= 0.01:
+            ef_off.append(name)
+    differ = {}
+    for tag, g_tree, w_tree in (("params", gp, wp), ("m", gs["m"], ws["m"]),
+                                ("ef_error", gs["ef_error"],
+                                 ws["ef_error"])):
+        differ[tag] = {
+            name: float((g.double() - w.double()).abs().max())
+            for name, g, w in zip(tree_lib.paths(w_tree),
+                                  tree_lib.leaves(g_tree),
+                                  tree_lib.leaves(w_tree))
+            if not torch.equal(g, w)}
+    res = {"metrics": gm, "metrics_one_process": wm,
+           "param_max_abs_diff_sure": worst_sure,
+           "param_max_abs_diff": worst_any,
+           "bits_equal": gm == wm and not any(differ.values()),
+           "leaves_whose_bits_differ": differ}
+    if bad or off or ef_off:
+        log(json.dumps({label: res}))
+        raise SystemExit(f"chip_smoke: {label}: metrics {bad}, leaves "
+                         f"{off}, ef_error {ef_off} off the one-process "
+                         "step")
+    return res
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def phase_sharded(card: str, runs: list) -> dict:
+    """18a: a one-rank NCCL world and a (1, 1, 1) ("pod", "data",
+    "model") mesh on the card: musicgen-medium (full width, 4 layers,
+    float32, 8 x 1024) through one ``make_train_step`` with the shard
+    function, ``state_specs`` placements and ``--pod-compress`` at npod 1,
+    held against the one-process step on the same parameters (A8.2 float32
+    rules; whether the bits are equal is reported).  Two ranks on the one
+    card (18b) would need gloo, whose all-gather of CUDA tensors through
+    the functional collectives that DTensor issues crashes the ranks on
+    the card's torch (``tools/gloo_cuda_probe.py``; PERF.md §7): left
+    out."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch import tree as tree_lib
+    from repro_torch.parallel import sharding as sh
+
+    t0 = time.perf_counter()
+    cfg, params, batch = shard_inputs()
+    want = one_process_step(cfg, tree_lib.map_tree(torch.clone, params),
+                            batch)
+    label = (f"phase 18a {SHARD_ARCH} {SHARD_LAYERS} layers float32 "
+             f"8x{SHARD_SEQ}, NCCL world 1, mesh (1, 1, 1)")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1, 1),
+                                mesh_dim_names=("pod", "data", "model"))
+        gp, gs, gm, counts, sites, secs = sharded_step(
+            cfg, params, batch, mesh,
+            sh.ShardingRules.default(dp_axes=("data",)))
+    finally:
+        dist.destroy_process_group()
+    del params
+    runs.append({"path": label, "launches": counts, "sites": sites,
+                 "steps": 1})
+    check_shard_launches(label, counts, sites)
+    out = {"a": {"label": label, "step_s": secs, "launches": counts,
+                 **check_a82(label, (gp, gs, gm), want)}}
+    del gp, gs, want
+    out["a"]["wall_s"] = time.perf_counter() - t0
+    log(json.dumps({"phase": "18a", **out["a"], "card": card}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def phases_11_to_13(card, graphs, kell, lp, traffic, het, figures, topo512,
                     timed, runs) -> None:
     """Phases 11-13 in order, each with its wall on the host clock."""
@@ -3179,7 +3412,14 @@ def main() -> None:
             f"{time.perf_counter() - t0:.1f} s)")
     log(f"phase 17 wall {time.perf_counter() - t17:.1f} s")
 
-    # phase 18: summary
+    # phase 18: the sharded train step (a one-rank NCCL mesh)
+    t0 = time.perf_counter()
+    sharded = phase_sharded(card, runs)
+    log(f"{card}: phase 18a {sharded['a']['step_s']:.2f} s a sharded step, "
+        f"bits equal {sharded['a']['bits_equal']} (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # phase 19: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "

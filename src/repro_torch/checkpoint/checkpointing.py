@@ -14,11 +14,15 @@ the reference's file format, so that each package restores the other's.
   int: the pipeline is counter-based) live in one tree, so a restore
   resumes bit for bit.
 * **One writer** — only rank 0 of an initialised ``torch.distributed``
-  group writes (every process restores).
+  group writes (every process restores).  A DTensor leaf (a state placed on
+  a mesh) is written in its full shape: every rank gathers it (a
+  collective, so every rank calls ``save_checkpoint``), rank 0 writes.
+* **Re-sharding** — ``restore_checkpoint(..., shardings=)`` places each
+  leaf on a (new) mesh: the reference's elastic path, here a tree of
+  ``parallel.sharding.Placed`` (a mesh and a spec) or None leaves.
 
 Retention keeps the last ``keep`` checkpoints and deletes older ones after
-a successful write, never before.  The reference's ``shardings=`` has no
-meaning on one device: ``restore_checkpoint`` takes ``device=`` instead.
+a successful write, never before.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel import sharding as shlib
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "Checkpointer"]
@@ -45,6 +50,8 @@ def _rank() -> int:
 
 
 def _host(x) -> np.ndarray:
+    if shlib.is_dtensor(x):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         x = x.detach()
         if x.dtype == torch.bfloat16:
@@ -59,8 +66,10 @@ def _flatten(state) -> dict[str, np.ndarray]:
 
 
 def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
-    """Atomically write ``state`` (a tree of tensors and numpy values) for
-    ``step``; returns the file's path ('' on a rank other than 0)."""
+    """Atomically write ``state`` (a tree of tensors, DTensors and numpy
+    values) for ``step``; returns the file's path ('' on a rank other than
+    0)."""
+    flat = _flatten(state)      # every rank: a DTensor gathers
     if _rank() != 0:
         return ""
     os.makedirs(ckpt_dir, exist_ok=True)
@@ -68,7 +77,7 @@ def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
     fd, tmp = tempfile.mkstemp(dir=ckpt_dir, suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
-            np.savez(f, **_flatten(state))
+            np.savez(f, **flat)
         os.replace(tmp, final)
     finally:
         if os.path.exists(tmp):
@@ -90,16 +99,23 @@ def _restore_leaf(key: str, arr: np.ndarray, leaf, device):
         raise ValueError(f"checkpoint leaf {key} has shape {arr.shape}, "
                          f"template wants {want}")
     if isinstance(leaf, torch.Tensor):
+        if shlib.is_dtensor(leaf):
+            leaf = leaf.to_local()
         dev = leaf.device if device is None else torch.device(device)
         return torch.as_tensor(arr).to(device=dev, dtype=leaf.dtype)
     return np.asarray(arr, dtype=np.asarray(leaf).dtype)
 
 
 def restore_checkpoint(ckpt_dir: str, template, step: int | None = None,
-                       device: str | torch.device | None = None):
+                       device: str | torch.device | None = None,
+                       shardings=None):
     """Restore into the structure of ``template``: ``(step, state)``.  A
     tensor leaf comes back in the template leaf's dtype on ``device`` (the
-    template leaf's device when None), a numpy leaf as numpy."""
+    template leaf's device when None, a DTensor's local device), a numpy
+    leaf as numpy.  ``shardings`` (a tree like ``template`` of
+    ``parallel.sharding.Placed`` or None leaves, e.g. for a new mesh)
+    places each tensor leaf as a DTensor (every rank reads the file and
+    keeps its slice)."""
     step = latest_step(ckpt_dir) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
@@ -111,7 +127,12 @@ def restore_checkpoint(ckpt_dir: str, template, step: int | None = None,
         if key not in arrays:
             raise KeyError(f"checkpoint missing leaf {key}")
         new.append(_restore_leaf(key, arrays[key], leaf, device))
-    return step, tree_lib.unflatten(template, new)
+    state = tree_lib.unflatten(template, new)
+    if shardings is not None:
+        state = tree_lib.map_tree(
+            lambda x, s: s.place(x) if s is not None
+            and isinstance(x, torch.Tensor) else x, state, shardings)
+    return step, state
 
 
 @dataclasses.dataclass

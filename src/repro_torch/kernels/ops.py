@@ -24,6 +24,7 @@ import torch
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import minplus as _minplus
 from repro_torch.kernels import wkv as _wkv
+from repro_torch.parallel import sharding as shlib
 
 __all__ = ["minplus_matmul", "flash_attention", "wkv_chunked", "INF"]
 
@@ -92,6 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     diagonal aligned to the end of the ``lk_valid`` valid keys, local over
     the last ``window`` positions when ``window > 0`` (K4 on the card; see
     ``repro_torch.kernels.flash_attention``)."""
+    _local("flash_attention", q, k, v)
     return _flash.flash_attention(q, k, v, causal=causal, scale=scale,
                                   lk_valid=lk_valid, window=window,
                                   site=site)
@@ -104,4 +106,12 @@ def wkv_chunked(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Chunked WKV-6 over [BH, T, n] or [B, H, T, n] (strided views
     allowed) from state ``s0``: ``(o, s_final)`` (K5 on the card; see
     ``repro_torch.kernels.wkv``)."""
+    _local("wkv_chunked", r, k, v, log_w, u, s0)
     return _wkv.wkv_chunked(r, k, v, log_w, u, s0)
+
+
+def _local(name: str, *xs) -> None:
+    """No DTensor goes into a kernel: on a mesh the model hands each rank's
+    local heads over (``models.layers.local_heads``, ``rwkv6._wkv_local``)."""
+    if any(shlib.is_dtensor(x) for x in xs):
+        raise TypeError(f"{name} takes local tensors, not DTensors")

@@ -8,14 +8,22 @@ checkpoint, restart, and the reference's flags, loop and printed lines.
   * atomic checkpoints every ``--ckpt-every`` steps; ``--resume`` restarts
     from the newest complete checkpoint (the reference's file format, so
     either package resumes the other's),
-  * int8 error-feedback gradient compression (``--pod-compress``) at one
-    pod, as the reference runs it without ``--multi-pod``.
+  * int8 error-feedback gradient compression (``--pod-compress``): at one
+    pod without ``--multi-pod``, as the reference runs it; across the pods
+    of the production mesh with it,
+  * ``--multi-pod``: the production mesh (2, 16, 16) over ("pod", "data",
+    "model") (``launch.mesh``), the reference's rules with the batch over
+    "data" only (``ShardingRules.default(dp_axes=("data",))``): each pod
+    computes its own gradient, and ``--pod-compress`` makes the int8
+    all-gather of ``optim.compress`` the only collective between pods.
+    Run it under ``torchrun``, one rank a card (NCCL; ``--device cpu``
+    takes gloo); every rank makes the whole parameters from ``--seed`` and
+    keeps its slice (``parallel.sharding.state_specs``).  In a world of
+    other than 512 ranks it raises, naming the size it needs.
 
 It runs on the card unless ``--device cpu``; the parameters come from an
 explicit generator seeded with ``--seed`` (their draws differ from the
-reference's ``jax.random``).  ``--multi-pod`` needs the production mesh
-(``parallel/sharding.py``, ROADMAP A8.3), which the port does not have
-yet: it raises.
+reference's ``jax.random``).
 
 Example (one card, musicgen-medium at full width and depth):
 
@@ -30,6 +38,7 @@ and on the CPU with the small config:
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 import numpy as np
@@ -39,9 +48,12 @@ from repro_torch import tree as tree_lib
 from repro_torch.checkpoint import (Checkpointer, latest_step,
                                     restore_checkpoint)
 from repro_torch.configs import get_config, get_smoke
+from repro_torch.configs import expert_parallel_ok
 from repro_torch.data import make_batch
+from repro_torch.models import layers as mlayers
 from repro_torch.models import model as model_lib
 from repro_torch.optim import AdamW, cosine_schedule
+from repro_torch.parallel import sharding as shrules
 
 
 def _leaf_sums(params) -> list[float]:
@@ -71,28 +83,48 @@ def main(argv=None, record: dict | None = None) -> dict:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--pod-compress", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the production multi-pod mesh (not in the port)")
+                    help="the production multi-pod mesh (under torchrun)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        raise SystemExit("--multi-pod needs the production mesh "
-                         "(parallel/sharding.py), which the port does not "
-                         "have yet (ROADMAP A8.3); --pod-compress runs at "
-                         "one pod without it")
 
     cfg = get_smoke(args.arch) if args.smoke else get_config(args.arch)
+    device = args.device
+    mesh = None
+    shard = mlayers.no_shard
     npod = 1
-    model = model_lib.get_model(cfg, args.device)
+    unshard_pod = None
+    if args.multi_pod:
+        from repro_torch.launch.mesh import make_production_mesh
+        device = _join_world(args.device)
+        mesh = make_production_mesh(multi_pod=True,
+                                    device_type=torch.device(device).type)
+        npod = shrules.mesh_axes(mesh).shape["pod"]
+        rules = shrules.ShardingRules.default(dp_axes=("data",))
+        shard = shrules.make_shard_fn(mesh, rules)
+        if args.pod_compress:
+            unshard_pod = shrules.unshard_pod
+
+    model = model_lib.get_model(cfg, device)
     opt = AdamW(lr=cosine_schedule(args.lr, args.warmup, args.steps))
     params = model.init_params(
         torch.Generator(device=model.device).manual_seed(args.seed))
     opt_state = opt.init(params)
     if args.pod_compress:
         opt_state["ef_error"] = model_lib.init_ef_error(params, npod)
+    shardings = None
+    if mesh is not None:
+        ep = expert_parallel_ok(cfg, shrules.mesh_axes(mesh).shape["model"])
+        p_specs = shrules.state_specs(params, mesh, "param", ep)
+        o_specs = shrules.state_specs(opt_state, mesh, "opt", ep)
+        params = shrules.distribute(params, p_specs, mesh)
+        opt_state = shrules.distribute(opt_state, o_specs, mesh)
+        shardings = {"params": shrules.named(p_specs, mesh, params),
+                     "opt_state": shrules.named(o_specs, mesh, opt_state),
+                     "data_step": None}
 
     train_step = model_lib.make_train_step(
-        cfg, opt, accum=args.accum, pod_compress=args.pod_compress,
-        npod=npod, device=model.device)
+        cfg, opt, shard, accum=args.accum, pod_compress=args.pod_compress,
+        npod=npod, unshard_pod=unshard_pod, device=model.device)
 
     start = 0
     ckpt = Checkpointer(args.ckpt_dir, args.ckpt_every) if args.ckpt_dir \
@@ -100,7 +132,8 @@ def main(argv=None, record: dict | None = None) -> dict:
     if args.resume and args.ckpt_dir and latest_step(args.ckpt_dir) is not None:
         template = {"params": params, "opt_state": opt_state,
                     "data_step": np.zeros((), np.int64)}
-        start, state = restore_checkpoint(args.ckpt_dir, template)
+        start, state = restore_checkpoint(args.ckpt_dir, template,
+                                          shardings=shardings)
         params, opt_state = state["params"], state["opt_state"]
         start = int(state["data_step"])
         print(f"resumed from step {start}")
@@ -134,6 +167,22 @@ def main(argv=None, record: dict | None = None) -> dict:
            "steps": len(losses)}
     print(f"done: loss {out['first_loss']:.4f} -> {out['last_loss']:.4f}")
     return out
+
+
+def _join_world(device: str) -> str:
+    """Under ``torchrun`` (``WORLD_SIZE`` set): join the process group
+    (NCCL on the card, gloo on the CPU) and return this rank's device;
+    otherwise ``device`` as given (a world of one)."""
+    dist = torch.distributed
+    if "WORLD_SIZE" not in os.environ or dist.is_initialized():
+        return device
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        torch.cuda.set_device(local)
+        device = f"cuda:{local}"
+    dist.init_process_group("nccl" if on_card else "gloo")
+    return device
 
 
 if __name__ == "__main__":

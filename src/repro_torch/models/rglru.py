@@ -171,11 +171,12 @@ def _rglru_step(lw: dict, x: torch.Tensor, h: torch.Tensor):
 # --------------------------------------------------------------------------
 
 def _rec_block(cfg: ModelConfig, x: torch.Tensor, lw: dict,
-               cache: dict | None):
+               cache: dict | None, shard: layers.Shard = layers.no_shard):
     """Griffin recurrent block.  Returns (out, new_cache)."""
     h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
     gate = F.gelu(layers.dense(h, lw["w_gate_in"]), approximate="tanh")
     u = layers.dense(h, lw["w_rnn_in"])
+    u = shard(u, "ffn_hidden")
     # the range names the convolution and the recurrence in a profile
     with torch.profiler.record_function("repro_torch.rglru"):
         if cache is None:
@@ -186,11 +187,12 @@ def _rec_block(cfg: ModelConfig, x: torch.Tensor, lw: dict,
                                          cache["conv"])
             y, h_last = _rglru_step(lw, u, cache["h"])
     out = layers.dense(gate * y, lw["w_out"])
-    return out, {"h": h_last, "conv": conv_state}
+    return shard(out, "act_btd"), {"h": h_last, "conv": conv_state}
 
 
 def _attn_block_ring(cfg: ModelConfig, x: torch.Tensor, lw: dict,
-                     cache: dict, pos: int):
+                     cache: dict, pos: int,
+                     shard: layers.Shard = layers.no_shard):
     """Decode-time local attention over the ring cache: the new k/v go to
     slot ``pos % window`` IN PLACE, then K4 over the slots that hold
     positions ``<= pos`` (all of them once the ring has wrapped)."""
@@ -204,62 +206,69 @@ def _attn_block_ring(cfg: ModelConfig, x: torch.Tensor, lw: dict,
     sin, cos = layers.rope(torch.tensor([pos], device=x.device), hd,
                            cfg.rope_theta)
     q, k = layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)
+    q = shard(q, "heads")
     slot = pos % w
     cache["k"][:, slot:slot + 1] = k.to(cache["k"].dtype)
     cache["v"][:, slot:slot + 1] = v.to(cache["v"].dtype)
     # softmax over a set of keys: the ring's order does not matter
     out = layers.attention(q, cache["k"], cache["v"], causal=True,
-                           kv_len=min(pos + 1, w), site="decode")
-    return layers.dense(out.reshape(b, 1, hq * hd), lw["wo"]), cache
+                           kv_len=min(pos + 1, w), site="decode",
+                           shard=shard)
+    out = layers.dense(out.reshape(b, 1, hq * hd), lw["wo"])
+    return shard(out, "act_btd"), cache
 
 
-def _mlp(cfg: ModelConfig, x: torch.Tensor, lw: dict) -> torch.Tensor:
+def _mlp(cfg: ModelConfig, x: torch.Tensor, lw: dict,
+         shard: layers.Shard = layers.no_shard) -> torch.Tensor:
     h = layers.rms_norm(x, lw["ln2"], cfg.norm_eps)
-    return layers.swiglu(h, lw["wg"], lw["wu"], lw["wd"])
+    return layers.swiglu(h, lw["wg"], lw["wu"], lw["wd"], shard)
 
 
 # --------------------------------------------------------------------------
 # public API (mirrors models.transformer)
 # --------------------------------------------------------------------------
 
-def _layers(cfg: ModelConfig, params: dict, batch: dict, on_layer=None):
+def _layers(cfg: ModelConfig, params: dict, batch: dict, on_layer=None,
+            shard: layers.Shard = layers.no_shard):
     """The embedded sequence through every block; ``on_layer(i, kind,
     cache)`` receives each block's cache (rec: h, conv; attn: (k, v)).
     Each layer is rematerialised when a gradient is taken
     (``layers.remat``, the reference's per-layer ``jax.checkpoint``)."""
-    x = tfm._embed(cfg, params, batch)
+    x = tfm._embed(cfg, params, batch, shard)
     sin, cos = layers.rope(torch.arange(x.shape[1], device=x.device),
                            cfg.head_dim_, cfg.rope_theta)
     for i, (kind, lw) in enumerate(zip(cfg.layer_kinds, params["blocks"])):
-        x, c = layers.remat(_layer, cfg, kind, x, lw, sin, cos)
+        x, c = layers.remat(_layer, cfg, kind, x, lw, sin, cos, shard)
         if on_layer is not None:
             on_layer(i, kind, c)
     return x
 
 
 def _layer(cfg: ModelConfig, kind: str, x: torch.Tensor, lw: dict,
-           sin: torch.Tensor, cos: torch.Tensor):
+           sin: torch.Tensor, cos: torch.Tensor,
+           shard: layers.Shard = layers.no_shard):
     if kind == "rec":
-        a, c = _rec_block(cfg, x, lw, None)
+        a, c = _rec_block(cfg, x, lw, None, shard)
     else:
-        a, c = tfm._attn_block(cfg, x, lw, sin, cos)
+        a, c = tfm._attn_block(cfg, x, lw, sin, cos, shard)
     x = x + a
-    return x + _mlp(cfg, x, lw), c
+    return x + _mlp(cfg, x, lw, shard), c
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
+            shard: layers.Shard = layers.no_shard,
             collect_cache: bool = False, unembed: bool = True):
     """Returns (logits [B, S, Vp], 0.0, per-layer caches | None); with
     unembed=False the final-norm hidden states instead of logits."""
     caches = []
     x = _layers(cfg, params, batch,
                 (lambda i, kind, c: caches.append(c)) if collect_cache
-                else None)
+                else None, shard)
     out = caches if collect_cache else None
     if not unembed:
         return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), \
             tfm._zero(x), out
-    return tfm._unembed(cfg, params, x), tfm._zero(x), out
+    return tfm._unembed(cfg, params, x, shard), tfm._zero(x), out
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -296,7 +305,8 @@ def _ring(x: torch.Tensor, w: int) -> torch.Tensor:
     return F.pad(x, (0, 0, 0, 0, 0, w - s))
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
+            shard: layers.Shard = layers.no_shard):
     """Run the prompt through the model (K4 with the local window in every
     attention layer), build the ring and recurrent caches, return the
     logits of the last position: (logits [B, Vp], cache)."""
@@ -309,28 +319,28 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
         else:
             out[i] = {"k": _ring(c[0], w).to(dt), "v": _ring(c[1], w).to(dt)}
 
-    x = _layers(cfg, params, batch, keep)
+    x = _layers(cfg, params, batch, keep, shard)
     seq = x.shape[1]
     # unembed the last position only (the reference's logits[:, -1])
-    return tfm._unembed(cfg, params, x[:, -1:])[:, 0], \
+    return tfm._unembed(cfg, params, x[:, -1:], shard)[:, 0], \
         {"layers": out, "pos": seq}
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, shard: layers.Shard = layers.no_shard):
     """One token for every sequence: tokens [B, 1] -> (logits [B, Vp],
     cache); the ring caches are written in place."""
     pos = int(cache["pos"])
-    x = tfm._embed(cfg, params, {"tokens": tokens})
+    x = tfm._embed(cfg, params, {"tokens": tokens}, shard)
     new = []
     for kind, lw, c in zip(cfg.layer_kinds, params["blocks"],
                            cache["layers"]):
         if kind == "rec":
-            a, nc = _rec_block(cfg, x, lw, c)
+            a, nc = _rec_block(cfg, x, lw, c, shard)
         else:
-            a, nc = _attn_block_ring(cfg, x, lw, c, pos)
+            a, nc = _attn_block_ring(cfg, x, lw, c, pos, shard)
         x = x + a
-        x = x + _mlp(cfg, x, lw)
+        x = x + _mlp(cfg, x, lw, shard)
         new.append(nc)
-    logits = tfm._unembed(cfg, params, x)
+    logits = tfm._unembed(cfg, params, x, shard)
     return logits[:, -1], {"layers": new, "pos": pos + 1}

@@ -14,8 +14,9 @@ Prefill runs the chunked WKV through ``repro_torch.kernels.ops.wkv_chunked``
 (K5 on the card, its plain chunked version on the CPU) from a zero state and
 keeps the final state for the cache.  Decode is the one-token recurrence
 ``_wkv_step`` in plain torch, as in the reference, which has no kernel for
-it.  The reference's ``scan`` over layers is a Python loop and its ``shard``
-hooks are dropped (one device).
+it.  The reference's ``scan`` over layers is a Python loop; its ``shard``
+hooks stay at the reference's sites (``layers.no_shard`` without a mesh).
+On a mesh K5 runs on each rank's heads (``_wkv_local``).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.models import layers, transformer as tfm
 from repro_torch.models.config import ModelConfig
+from repro_torch.parallel import sharding as shlib
 
 __all__ = ["init_params", "forward", "prefill", "decode_step", "init_cache",
            "LOG_W_CLAMP"]
@@ -116,9 +118,42 @@ def _wkv_chunked(r, k, v, log_w, u, s0):
     kernel takes (batch, head) as its lanes: the projections go in as
     [B, H, T, n] views, read in place, and o comes back in the same
     layout."""
+    if shlib.is_dtensor(r):
+        return _wkv_local(r, k, v, log_w, u, s0)
     o, s = ops.wkv_chunked(*(x.permute(0, 2, 1, 3) for x in (r, k, v, log_w)),
                            u, s0)
     return o.permute(0, 2, 1, 3), s
+
+
+def _wkv_local(r, k, v, log_w, u, s0):
+    """``_wkv_chunked`` of DTensors on each rank's own heads: k, v and
+    log_w are placed as r is (over batch and heads; the reference places r
+    and k only, its jnp WKV taking any layout), u [H, n] and s0
+    [B, H, n, n] over the same heads, and K5 runs on the local tensors.
+    The gradient of u, whole on the batch dims, is a partial sum there."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    mesh, pl = r.device_mesh, list(r.placements)
+    for p in pl:
+        if p.is_shard() and p.dim not in (0, 2):
+            raise ValueError(f"_wkv_local: r is sharded on dim {p.dim}")
+    k, v, log_w = (x.redistribute(mesh, pl) for x in (k, v, log_w))
+    u_pl = [Shard(0) if p.is_shard(2) else Replicate() for p in pl]
+    u_grad = [Partial() if p.is_shard(0) else q for p, q in zip(pl, u_pl)]
+    s_pl = [Shard(1) if p.is_shard(2) else p for p in pl]
+    ul = u.redistribute(mesh, u_pl).to_local(grad_placements=u_grad)
+    sl = None if s0 is None else s0.redistribute(mesh, s_pl).to_local()
+    o, s = _wkv_chunked(*(x.to_local() for x in (r, k, v, log_w)), ul, sl)
+    b, _, h, n = r.shape
+    s_shape = (b, h, n, n)
+    # o comes back as a permuted view: made contiguous, as the global
+    # stride given says
+    return (DTensor.from_local(o.contiguous(), mesh, pl, run_check=False,
+                               shape=r.shape,
+                               stride=torch.empty(r.shape,
+                                                  device="meta").stride()),
+            DTensor.from_local(s, mesh, s_pl, run_check=False, shape=s_shape,
+                               stride=torch.empty(s_shape,
+                                                  device="meta").stride()))
 
 
 def _wkv_step(r, k, v, log_w, u, s):
@@ -142,31 +177,35 @@ def _head_norm(cfg: ModelConfig, o: torch.Tensor,
     return o.reshape(b, t, cfg.d_model) * gain.to(o.dtype)
 
 
-def _time_mix(cfg, x, lw, prev, s0):
+def _time_mix(cfg, x, lw, shard, prev, s0):
     u = lw["bonus"].float().reshape(cfg.num_rwkv_heads, cfg.rwkv_head_dim)
     x_prev = _shift(x, prev)
     r, k, v, g, log_w = _rkvgw(cfg, x, x_prev, lw)
+    r = shard(r, "heads")
+    k = shard(k, "heads")
     if x.shape[1] == 1:
         o, s = _wkv_step(r, k, v, log_w, u, s0)
     else:
         # ops.wkv_chunked takes a ragged T as the reference pads it here
         # (k = v = 0, log_w = 0 on the steps past T)
         o, s = _wkv_chunked(r, k, v, log_w, u, s0)
-    o = _head_norm(cfg, o.to(x.dtype), lw["ln_x"]) * g
-    return layers.dense(o, lw["w_o"]), x[:, -1], s
+    o = shard(o.to(x.dtype), "heads")
+    o = _head_norm(cfg, o, lw["ln_x"]) * g
+    return shard(layers.dense(o, lw["w_o"]), "act_btd"), x[:, -1], s
 
 
-def _channel_mix(cfg, x, lw, prev):
+def _channel_mix(cfg, x, lw, shard, prev):
     x_prev = _shift(x, prev)
     xk = _lerp(x, x_prev, lw["mu"][5])
     xr = _lerp(x, x_prev, lw["mu"][6])
     kk = torch.square(F.relu(layers.dense(xk, lw["wk2"])))
+    kk = shard(kk, "ffn_hidden")
     out = torch.sigmoid(layers.dense(xr, lw["wr2"])) * \
         layers.dense(kk, lw["wv2"])
-    return out, x[:, -1]
+    return shard(out, "act_btd"), x[:, -1]
 
 
-def _block(cfg, x, lw, cache):
+def _block(cfg, x, lw, cache, shard=layers.no_shard):
     """One layer; ``cache`` None starts from a zero state (prefill, run as
     ``s0 = None``, which K5 reads as zero)."""
     s0 = cache["s"] if cache else None
@@ -177,10 +216,10 @@ def _block(cfg, x, lw, cache):
     prev1 = cache["shift1"] if cache else None
     prev2 = cache["shift2"] if cache else None
     h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
-    a, last1, s = _time_mix(cfg, h, lw, prev1, s0)
+    a, last1, s = _time_mix(cfg, h, lw, shard, prev1, s0)
     x = x + a
     h = layers.rms_norm(x, lw["ln2"], cfg.norm_eps)
-    c, last2 = _channel_mix(cfg, h, lw, prev2)
+    c, last2 = _channel_mix(cfg, h, lw, shard, prev2)
     x = x + c
     return x, {"s": s, "shift1": last1, "shift2": last2}
 
@@ -190,15 +229,16 @@ def _block(cfg, x, lw, cache):
 # --------------------------------------------------------------------------
 
 def forward(cfg: ModelConfig, params: dict, batch: dict,
+            shard: layers.Shard = layers.no_shard,
             collect_cache: bool = False, unembed: bool = True):
     """Returns (logits [B, S, Vp], aux_loss (0), per-layer caches stacked on
     L | None).  With unembed=False, returns the final-norm hidden states.
     Each layer is rematerialised when a gradient is taken
     (``layers.remat``)."""
-    x = tfm._embed(cfg, params, batch)
+    x = tfm._embed(cfg, params, batch, shard)
     caches = []
     for lw in tfm.layers_of(params):
-        x, c = layers.remat(_block, cfg, x, lw, None)
+        x, c = layers.remat(_block, cfg, x, lw, None, shard)
         if collect_cache:
             caches.append(c)
     stacked = ({key: torch.stack([c[key] for c in caches])
@@ -207,7 +247,7 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     if not unembed:
         return layers.rms_norm(x, params["final_norm"], cfg.norm_eps), \
             tfm._zero(x), stacked
-    return tfm._unembed(cfg, params, x), tfm._zero(x), stacked
+    return tfm._unembed(cfg, params, x, shard), tfm._zero(x), stacked
 
 
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
@@ -226,29 +266,30 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
     }
 
 
-def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int):
+def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
+            shard: layers.Shard = layers.no_shard):
     """(logits of the last position [B, Vp], cache)."""
-    x = tfm._embed(cfg, params, batch)
+    x = tfm._embed(cfg, params, batch, shard)
     cache = init_cache(cfg, x.shape[0], max_len, x.device)
     for i in range(cfg.num_layers):
-        x, c = _block(cfg, x, tfm.layer(params, i), None)
+        x, c = _block(cfg, x, tfm.layer(params, i), None, shard)
         for key in ("s", "shift1", "shift2"):
             cache[key][i] = c[key]        # in place into the preallocated cache
     cache["pos"] = x.shape[1]
     # unembed the last position only (see transformer.prefill)
-    return tfm._unembed(cfg, params, x[:, -1:])[:, 0], cache
+    return tfm._unembed(cfg, params, x[:, -1:], shard)[:, 0], cache
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
-                tokens: torch.Tensor):
+                tokens: torch.Tensor, shard: layers.Shard = layers.no_shard):
     """tokens [B, 1] -> (logits [B, Vp], cache).  The returned cache holds
     the same state buffers, updated in place, and ``pos + 1``."""
-    x = tfm._embed(cfg, params, {"tokens": tokens})
+    x = tfm._embed(cfg, params, {"tokens": tokens}, shard)
     for i in range(cfg.num_layers):
         x, c = _block(cfg, x, tfm.layer(params, i),
                       {key: cache[key][i] for key in ("s", "shift1",
-                                                       "shift2")})
+                                                       "shift2")}, shard)
         for key in ("s", "shift1", "shift2"):
             cache[key][i] = c[key]
-    logits = tfm._unembed(cfg, params, x)
+    logits = tfm._unembed(cfg, params, x, shard)
     return logits[:, -1], dict(cache, pos=int(cache["pos"]) + 1)

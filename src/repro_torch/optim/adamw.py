@@ -18,6 +18,7 @@ from typing import Callable
 import torch
 
 from repro_torch import tree as tree_lib
+from repro_torch.parallel import sharding as shlib
 
 __all__ = ["AdamW", "cosine_schedule"]
 
@@ -61,9 +62,14 @@ class AdamW:
     @staticmethod
     def global_norm(tree) -> torch.Tensor:
         """sqrt of the sum over the leaves (in ``jax.tree.leaves``' order)
-        of each leaf's sum of squares, in float32."""
+        of each leaf's sum of squares, in float32.  A DTensor leaf's sum is
+        its local shard's, added over the mesh dims that split it (a plain
+        tensor, the same on every rank)."""
         total = 0
         for g in tree_lib.leaves(tree):
+            if shlib.is_dtensor(g):
+                total = total + _sum_squares(g)
+                continue
             gf = g.float()
             total = total + torch.sum(gf * gf)
         return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
@@ -81,14 +87,19 @@ class AdamW:
         scale = torch.clamp(self.clip_norm / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
         step = state["step"] + 1
-        lr = self.lr(step) if callable(self.lr) else self.lr
+        # a DTensor step (replicated) enters the arithmetic whole
+        step_w = step.full_tensor() if shlib.is_dtensor(step) else step
+        lr = self.lr(step_w) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
-        t = step.to(torch.float32)
+        t = step_w.to(torch.float32)
         bc1 = 1 - torch.pow(b1, t)
         bc2 = 1 - torch.pow(b2, t)
         for p, g, m, v in zip(tree_lib.leaves(params), tree_lib.leaves(grads),
                               tree_lib.leaves(state["m"]),
                               tree_lib.leaves(state["v"])):
+            if shlib.is_dtensor(p):
+                # elementwise on the local shards, written in place
+                p, g, m, v = _locals(p, g, m, v)
             g = g.float() * scale
             m.mul_(b1).add_((1 - b1) * g)
             v.mul_(b2).add_((1 - b2) * g * g)
@@ -99,3 +110,28 @@ class AdamW:
             p.copy_(pf - lr * u)
             del u, pf
         return params, {"m": state["m"], "v": state["v"], "step": step}
+
+
+def _sum_squares(g) -> torch.Tensor:
+    """A DTensor's sum of squares in float32 as a plain tensor: the local
+    shard's, SUM all-reduced over each mesh dim that splits it."""
+    gl = g.to_local().float()
+    total = torch.sum(gl * gl)
+    for i, p in enumerate(g.placements):
+        if p.is_shard():
+            torch.distributed.all_reduce(total,
+                                         group=g.device_mesh.get_group(i))
+        elif p.is_partial():
+            raise ValueError("global_norm: a partial gradient")
+    return total
+
+
+def _locals(*xs):
+    """The local shards of DTensors placed alike (a parameter, its
+    gradient and its moments)."""
+    pl = xs[0].placements
+    for x in xs[1:]:
+        if x.placements != pl:
+            raise ValueError(f"AdamW: placements {x.placements} beside "
+                             f"the parameter's {pl}")
+    return tuple(x.to_local() for x in xs)

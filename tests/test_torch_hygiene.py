@@ -56,7 +56,9 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.design.optimizer, repro_torch.core.routing, "
             "repro_torch.kernels.paths, repro_torch.lifecycle, "
             "repro_torch.lifecycle.degradation, "
-            "repro_torch.lifecycle.expansion\n"
+            "repro_torch.lifecycle.expansion, repro_torch.parallel, "
+            "repro_torch.parallel.sharding, repro_torch.launch.mesh, "
+            "repro_torch.launch.train, repro_torch.models.model\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"

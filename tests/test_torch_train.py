@@ -415,12 +415,15 @@ def test_train_main_resume_bitwise(tmp_path):
 
 
 def test_train_main_pod_compress_and_multi_pod(capsys):
-    """--pod-compress runs at one pod; --multi-pod needs the production
-    mesh (ROADMAP A8.3) and says so."""
+    """--pod-compress runs at one pod; --multi-pod builds the production
+    mesh, which in a one-process world raises and names the world size it
+    needs (512 ranks)."""
     from repro_torch.launch import train
     out = train.main(_TRAIN_ARGS + ["--steps", "2", "--pod-compress",
                                 "--accum", "2"])
     assert out["steps"] == 2 and np.isfinite(out["last_loss"])
     assert "done: loss" in capsys.readouterr().out
-    with pytest.raises(SystemExit, match="multi-pod"):
-        train.main(_TRAIN_ARGS + ["--steps", "1", "--multi-pod"])
+    with pytest.raises(RuntimeError, match="needs a world of 512 ranks"):
+        train.main(_TRAIN_ARGS + ["--steps", "1", "--multi-pod",
+                                  "--pod-compress"])
+    assert not torch.distributed.is_initialized()
