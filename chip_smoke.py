@@ -72,8 +72,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ms of the APSP forward, the SP-DAG backward, the FW line search and the
    rest, idle share);
 10. the figure layer — ``repro_torch.launch.figures.fig5`` at paper scale
-   at 5 runs a point, the paper's 10 halved so that phases 11-13 fit (3
-   configurations x 6 biases x 5 runs = 90 instances of 40-60 switches,
+   at 3 runs a point of the paper's 10, so that phases 11-13 fit (3
+   configurations x 6 biases x 3 runs = 54 instances of 40-60 switches,
    one BatchPlan, certified engine at tol 1e-4: K1 squaring); the first
    run of every point (18 instances) held against HiGHS (lb <= θ <= ub),
    whose LPs run in 4 worker processes beside phases 11-13 and are
@@ -100,7 +100,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    ``benchmarks/design_bench.py``'s paper budget (2 rounds of its 3, fleet
    6 of 8, elite 3, 2 runs, ``DualEngine(iters=250, tol=1e-3)``, K1) on
    ``VL2Space(VL2Spec(6, 6, 20))`` and the two-class pool (10 x 18 + 20
-   x 6 ports, 90 servers, ``robust=True``): best lb >= the recipe's, 1 +
+   x 6 ports, 90 servers, ``robust`` at 1 adversarial round of 2
+   candidates, the default's 2 of 4): best lb >= the recipe's, 1 +
    rounds search executes on one compile key; (b)
    ``launch.figures.fig11`` at d_a = d_i = 4 (``FIG11_D``), 5 runs, HiGHS
    as the criterion (its LPs in worker processes), then the designer's search
@@ -183,7 +184,22 @@ Phases (any failure exits non-zero; no phase catches and continues):
    gloo (NCCL takes one rank a GPU), is left out: gloo's all-gather of
    CUDA tensors through the functional collectives DTensor issues crashes
    the ranks on the card's torch (``tools/gloo_cuda_probe.py``);
-19. summary — one JSON line with every kernel, then the device line last.
+19. the dry run on the card — rank 0 of a fake 256-rank world
+   (``launch.dryrun.fake_world``: its collectives move no data) with real
+   CUDA tensors: minitron-4b ``prefill_32k`` on the (16, 16) production
+   mesh at full depth, only rank 0's shards resident; 24 q heads over a
+   model axis of 16, so the uneven-heads path runs and K4 takes rank 0's
+   2 heads: one launch a layer on route "mma", no plain kernel; no value
+   of the step is checked (the collectives move no data, so what they
+   gather is whatever memory held), but the first layer's K4 call is run
+   again on its own q, k, v refilled with seeded values (same shapes and
+   layout) and held against ``flash_attention_plain`` under
+   ``K4_BF16_TOL``; device memory after placement and the step's peak beside
+   ``analytic_memory``'s total and the CPU dry run's bytes per chip (its
+   probes traced here on fake tensors), the step's seconds and
+   ``model_flops / chips`` over them as a share of 989 TFLOP/s; and
+   ``analytic_memory`` of phase 17b's train shape beside 17b's peak;
+20. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -193,8 +209,8 @@ Launch counts are reset just before each path's run (phase 3's, each of
 phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
 solves, phase 10's figure, phase 11's two streamed closures, each search
 of phases 12-13, phase 13's figure, each engine's pile of phase 14 and
-each call of phase 15, phase 17b's run, each gradient of phase 17c and
-phase 18a's sharded step)
+each call of phase 15, phase 17b's run, each gradient of phase 17c,
+phase 18a's sharded step and phase 19's step)
 and read just after it; a kernel
 of a path that was not launched fails the run.  The summary reports every
 path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
@@ -235,9 +251,9 @@ BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense (H100 SXM)
 TF32_FLOP_PER_S = 495e12     # TF32 tensor cores, dense (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TIMING_RUNS = 30
-# Fig. 5 runs a point in phase 10: the paper's 10 halved, so that phases
-# 11-13 fit the script's time; and the processes its HiGHS LPs take
-FIG5_RUNS = 5
+# Fig. 5 runs a point in phase 10: 3 of the paper's 10, so that phases 11-13
+# fit the script's time (ROADMAP S1); and the processes its HiGHS LPs take
+FIG5_RUNS = 3
 LP_WORKERS = 4
 
 
@@ -788,6 +804,10 @@ HOSE_TOL = 1e-4
 # script stays inside its time on a slow host (ROADMAP S1)
 DESIGN_BUDGET = dict(rounds=2, fleet=6, elite=3, runs=2)
 DESIGN_ITERS = 250
+# the two-class space's worst-case re-ranking: one adversarial round of 2
+# candidates (the optimizer's default: 2 rounds of 4), for the script's time
+# (ROADMAP S1)
+DESIGN_ROBUST = {"rounds": 1, "candidates": 2}
 # Fig. 11's designed column at d_a = d_i = 4, the smallest size of the
 # paper's small scale: at d = 10 (its paper scale) the column took 196-221 s,
 # at d = 8 118 s and at d = 6 59-96 s on an H100, time that phases 14-17 need
@@ -1024,7 +1044,8 @@ def phase_adversarial(graphs, lp, traffic, topo512, runs) -> dict:
 
 def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
     """Phase 13: (a) ``design.optimize`` at the design benchmark's paper
-    budget on its two spaces (the two-class one with ``robust=True``):
+    budget on its two spaces (the two-class one ``robust``, one
+    adversarial round, ``DESIGN_ROBUST``):
     best lb >= the recipe's, 1 + rounds search executes, one compile key
     for the search rounds; (b) Fig. 11's designed column at d_a = d_i =
     FIG11_D, 5 runs, with HiGHS as the criterion (its LPs in worker
@@ -1043,7 +1064,7 @@ def phase_design(het, vl2, figures, lp, traffic, engine_mod, runs) -> dict:
         ("vl2", design.VL2Space(spec, spec.n_tor_full), ("swap",), False),
         ("two_class", design.TwoClassSpace(het.TwoClassSpec(
             n_large=10, k_large=18, n_small=20, k_small=6, num_servers=90)),
-         ("swap", "servers", "bias"), True))
+         ("swap", "servers", "bias"), DESIGN_ROBUST))
     for label, space, moves, robust in spaces:
         name = (f"phase 13a design {label} {DESIGN_BUDGET['rounds']} "
                 f"rounds x fleet {DESIGN_BUDGET['fleet']} x runs "
@@ -3189,6 +3210,180 @@ def phase_sharded(card: str, runs: list) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dry run on the card (phase 19)
+# ---------------------------------------------------------------------------
+
+# rank 0 of the 256-rank production mesh: minitron-4b's 24 heads over a
+# model axis of 16 (rank 0 holds 2 q heads, ``layers.local_heads``)
+DRY_ARCH, DRY_SHAPE = "minitron-4b", "prefill_32k"
+
+
+def plain_by_query_chunks(kfa, q, k, v, causal=True, scale=None,
+                          lk_valid=None, window=0, chunk=2048):
+    """``flash_attention_plain`` computed ``chunk`` queries at a time (the
+    whole [B, H, Lq, Lk] float32 scores of a 32k prefill take 17 GB): a
+    causal chunk sees the keys up to its last query's position, with
+    ``lk_valid`` cut to that position, so every query keeps its own
+    position and window."""
+    lq, lk = q.shape[1], k.shape[1]
+    valid = lk if lk_valid is None else lk_valid
+    if not causal:
+        return kfa.flash_attention_plain(q, k, v, causal=False, scale=scale,
+                                         lk_valid=valid, window=window)
+    outs = []
+    for i0 in range(0, lq, chunk):
+        i1 = min(lq, i0 + chunk)
+        end = i1 + valid - lq
+        outs.append(kfa.flash_attention_plain(
+            q[:, i0:i1], k[:, :end], v[:, :end], causal=True, scale=scale,
+            lk_valid=end, window=window))
+    return torch.cat(outs, dim=1)
+
+
+def phase_dryrun(card: str, runs: list, trained: dict) -> dict:
+    """19: rank 0 of a fake 256-rank world (``launch.dryrun.fake_world``,
+    collectives that move no data) on the card, with real CUDA tensors:
+    minitron-4b ``prefill_32k`` on the (16, 16) mesh at full depth, only
+    rank 0's shards resident (each whole leaf made, cut, copied and
+    dropped).  The step must complete with one K4 launch a layer on route
+    "mma" at rank 0's head count and no plain kernel.  The fake group's
+    collectives move no data, so what the step gathered holds whatever
+    memory held (NaN at times) and no value of the step is checked;
+    instead the first layer's K4 call is held against its plain version
+    at its own shapes and layout: its q, k and v (k and v as
+    ``local_heads`` gathered them) are refilled in place with seeded
+    normal values, K4 runs on them again (on route "mma", outside the
+    counted run) and must agree with ``flash_attention_plain`` under
+    ``K4_BF16_TOL`` (``plain_by_query_chunks``).  Printed: device memory after placement and the step's peak beside
+    ``analytic_memory``'s total and the CPU trace's bytes per chip (its
+    probes traced here on fake tensors), the step's seconds (local work
+    only: collectives are free here, so a floor) and ``model_flops /
+    chips`` over them as a share of ``hlostats.H100.peak_flops``.  Also
+    ``analytic_memory`` of phase 17b's one-device musicgen-medium train
+    shape beside 17b's measured peak."""
+    import types
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES, ShapeConfig, get_config
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels import wkv as kwkv
+    from repro_torch.launch import dryrun, hlostats
+    from repro_torch.launch.mesh import make_production_mesh
+    if dist.is_initialized():
+        raise SystemExit("chip_smoke: phase 19 needs no process group")
+    cfg, shape = get_config(DRY_ARCH), SHAPES[DRY_SHAPE]
+    t0 = time.perf_counter()
+    heads: list = []
+    mesh = dryrun.fake_world(False, device_type="cuda")
+    try:
+        cpu_mesh = make_production_mesh(device_type="cpu")
+        args_cpu = dryrun.argument_bytes(cfg, shape, cpu_mesh)
+        t1 = time.perf_counter()
+        costs = dryrun.probe_costs(cfg, shape, cpu_mesh)
+        probe_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        cell = dryrun.build_cell(cfg, shape, mesh, device="cuda")
+        gc.collect()
+        torch.cuda.synchronize()
+        placed = torch.cuda.memory_allocated() - base
+        place_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        spied = ops.flash_attention
+        kept: dict = {}
+
+        def spy(q, k, v, **kw):
+            heads.append(int(q.shape[2]))
+            if not kept:
+                # the first layer's call, held against the plain version
+                # after the step
+                kept.update(q=q, k=k, v=v, kw=kw)
+            return spied(q, k, v, **kw)
+
+        _build.reset_launches()
+        ops.flash_attention = spy
+        try:
+            t1 = time.perf_counter()
+            with no_plain_kernels(kfa, kwkv):
+                logits, cache = cell.fn(*cell.args)
+            torch.cuda.synchronize()
+            step_s = time.perf_counter() - t1
+        finally:
+            ops.flash_attention = spied
+        step_peak = torch.cuda.max_memory_allocated() - base
+        counts, sites = dict(_build.LAUNCHES), dict(_build.SITE_LAUNCHES)
+        local_logits = tuple(logits.to_local().shape)
+        del cell, logits, cache
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    nl = cfg.num_layers
+    rank0_heads = -(-cfg.num_heads // 16)
+    label = (f"phase 19 {DRY_ARCH} {DRY_SHAPE} rank 0 of 256 (16, 16), "
+             f"{nl} layers, bf16")
+    runs.append({"path": label, "launches": counts, "sites": sites,
+                 "steps": 1})
+    want_sites = {"flash_attention/full": nl,
+                  "flash_attention/route:mma": nl}
+    others = {k: v for k, v in counts.items() if k != "flash_attention" and v}
+    if counts["flash_attention"] != nl or sites != want_sites or others \
+            or heads != [rank0_heads] * nl:
+        raise SystemExit(f"chip_smoke: {label}: launches {counts} {sites}, "
+                         f"heads {heads}; want {nl} K4 launches on route "
+                         f"mma at {rank0_heads} heads")
+    kw = {k: v for k, v in kept.pop("kw").items() if k != "site"}
+    q, k, v = kept.pop("q"), kept.pop("k"), kept.pop("v")
+    gen = torch.Generator(device=q.device).manual_seed(19)
+    for x in (q, k, v):
+        x.copy_(torch.randn(x.shape, generator=gen, device=x.device))
+    before = _build.SITE_LAUNCHES["flash_attention/route:mma"]
+    got = kfa.flash_attention(q, k, v, **kw)
+    if _build.SITE_LAUNCHES["flash_attention/route:mma"] != before + 1:
+        raise SystemExit(f"chip_smoke: {label}: K4 layer 0 did not take "
+                         f"route mma")
+    want = plain_by_query_chunks(kfa, q, k, v, **kw)
+    k4 = {"q": list(q.shape), "q_stride": list(q.stride()),
+          "k": list(k.shape), "k_stride": list(k.stride()),
+          "dtype": str(q.dtype), **kw, "tol": list(K4_BF16_TOL),
+          "max_abs_err": close(f"{label}: K4 layer 0", got, want,
+                               K4_BF16_TOL)}
+    del q, k, v, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    am = dryrun.analytic_memory(cfg, shape, mesh, 1)
+    mf = dryrun.model_flops(cfg, shape) / mesh.size()
+    one = types.SimpleNamespace(axis_names=("data", "model"),
+                                shape={"data": 1, "model": 1}, size=1)
+    train17b = ShapeConfig("train_8x1024", TRAIN_SEQ, TRAIN_BATCH, "train")
+    am17b = dryrun.analytic_memory(get_config("musicgen-medium"), train17b,
+                                   one, 1)
+    res = {"phase": "19", "label": label, "heads_rank0": rank0_heads,
+           "launches": counts, "sites": sites,
+           "logits_local_shape": local_logits, "k4_layer0": k4,
+           "placed_bytes": placed, "placement_peak_bytes": place_peak,
+           "step_peak_bytes": step_peak,
+           "analytic_bytes_per_chip": am,
+           "cpu_trace_bytes_per_chip": {
+               "arguments": args_cpu, "temp": costs["temp"],
+               "peak": args_cpu + costs["temp"]},
+           "cpu_trace_per_chip": {k: costs[k] for k in
+                                  ("flops", "bytes", "ici", "dcn")},
+           "cpu_probe_s": probe_s,
+           "step_s": step_s,
+           "model_flops_per_chip": mf,
+           "peak_share": mf / step_s / hlostats.H100.peak_flops,
+           "phase17b_analytic_bytes": am17b,
+           "phase17b_peak_gb": trained["musicgen-medium"]["peak_gb"],
+           "wall_s": time.perf_counter() - t0, "card": card}
+    log(json.dumps(res))
+    return res
+
+
 def phases_11_to_13(card, graphs, kell, lp, traffic, het, figures, topo512,
                     timed, runs) -> None:
     """Phases 11-13 in order, each with its wall on the host clock."""
@@ -3419,7 +3614,17 @@ def main() -> None:
         f"bits equal {sharded['a']['bits_equal']} (phase wall "
         f"{time.perf_counter() - t0:.1f} s)")
 
-    # phase 19: summary
+    # phase 19: the dry run on the card (rank 0 of a fake 256-rank world)
+    t0 = time.perf_counter()
+    dry = phase_dryrun(card, runs, trained)
+    log(f"{card}: phase 19 {DRY_ARCH} {DRY_SHAPE} rank 0: "
+        f"{dry['step_s']:.2f} s a step, step peak "
+        f"{dry['step_peak_bytes'] / 1e9:.2f} GB, analytic "
+        f"{dry['analytic_bytes_per_chip']['total'] / 1e9:.2f} GB, K4 layer 0 "
+        f"max abs err {dry['k4_layer0']['max_abs_err']:.3g} (phase wall "
+        f"{time.perf_counter() - t0:.1f} s)")
+
+    # phase 20: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "

@@ -23,8 +23,8 @@ from repro_torch import tree as tree_lib
 from repro_torch.kernels import ops
 from repro_torch.parallel import sharding as shlib
 
-__all__ = ["Shard", "no_shard", "rms_norm", "dense", "swiglu", "rope",
-           "m_rope", "apply_rope", "attention", "remat"]
+__all__ = ["Shard", "no_shard", "rms_norm", "dense", "split_heads", "swiglu",
+           "rope", "m_rope", "apply_rope", "attention", "remat"]
 
 Shard = Callable[[torch.Tensor, str], torch.Tensor]
 
@@ -99,6 +99,33 @@ def rows_whole(x: torch.Tensor) -> torch.Tensor:
     return x.redistribute(x.device_mesh, want)
 
 
+def split_heads(y: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, L, H * Dh] projection ``y`` as [B, L, H, Dh] heads.
+
+    On a mesh the projection's last dim is split over "model" (its weight's
+    p_df columns), evenly, and DTensor can view that split into heads only
+    when ``heads`` divides it.  Where it does not (24 heads over 16 ranks),
+    the last dim is gathered first and the view is whole; ``shard(..,
+    "heads")`` then splits the heads as ``torch.chunk`` does, and
+    ``local_heads`` takes each rank's share.  The output is gathered rather
+    than the weight: the weight's columns cannot be split by whole heads
+    without the same view in its gradient, and ``local_heads`` gathers k
+    and v over the head dims anyway."""
+    b, seq, width = y.shape
+    if shlib.is_dtensor(y):
+        n = 1
+        for i, p in enumerate(y.placements):
+            if p.is_shard(2):
+                n *= y.device_mesh.size(i)
+        if heads % n:
+            from torch.distributed.tensor import Replicate
+            whole = y.redistribute(y.device_mesh, [
+                Replicate() if p.is_shard(2) else p for p in y.placements])
+            return shlib.grad_as_forward(
+                whole.view(b, seq, heads, width // heads))
+    return y.view(b, seq, heads, width // heads)
+
+
 class _RowsWholeGrad(torch.autograd.Function):
     """The identity, whose backward takes the gradient through
     ``rows_whole``: a product's output gradient may come back with its
@@ -146,7 +173,8 @@ def m_rope(positions: torch.Tensor, head_dim: int, sections: tuple[int, ...],
                                          device=positions.device) / head_dim))
     comp = torch.repeat_interleave(
         torch.arange(len(sections), device=positions.device),
-        torch.tensor(sections, device=positions.device))       # [half]
+        torch.tensor(sections, device=positions.device),
+        output_size=half)                                       # [half]
     pos = positions.float()[:, comp]                            # [B, half, L]
     ang = pos.transpose(1, 2) * freq                            # [B, L, half]
     return torch.sin(ang), torch.cos(ang)
@@ -215,7 +243,8 @@ def local_heads(fn, q, k, v):
     than ranks) k and v are gathered over the head dims, and each local q
     head reads its own kv head (one kv head a q head); their gradients are
     then partial sums over those dims.  A rank with no heads returns an
-    empty slice without calling the kernel."""
+    empty slice without calling the kernel (k and v then hold no heads
+    either: ``idx`` is empty)."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = q.device_mesh
     for p in q.placements:
@@ -242,7 +271,10 @@ def local_heads(fn, q, k, v):
         idx = torch.div(off + torch.arange(ql.shape[2], device=ql.device),
                         hq // hkv, rounding_mode="floor")
         kl, vl = kl.index_select(2, idx), vl.index_select(2, idx)
-    out = fn(ql, kl, vl) if ql.shape[2] else torch.zeros_like(ql)
+    # a rank with no heads adds the sums of its empty k and v slices to
+    # its empty q: an empty output whose backward still reaches k and v,
+    # so that every rank runs the collectives of their gradients
+    out = fn(ql, kl, vl) if ql.shape[2] else ql + (kl.sum() + vl.sum())
     # contiguous, as the global stride given says (a kernel's plain
     # version may return a permuted view)
     return DTensor.from_local(out.contiguous(), mesh, q.placements,

@@ -200,9 +200,9 @@ def _attn_block_ring(cfg: ModelConfig, x: torch.Tensor, lw: dict,
                       cfg.local_window)
     b = x.shape[0]
     h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
-    q = layers.dense(h, lw["wq"]).view(b, 1, hq, hd)
-    k = layers.dense(h, lw["wk"]).view(b, 1, hkv, hd)
-    v = layers.dense(h, lw["wv"]).view(b, 1, hkv, hd)
+    q = layers.split_heads(layers.dense(h, lw["wq"]), hq)
+    k = layers.split_heads(layers.dense(h, lw["wk"]), hkv)
+    v = layers.split_heads(layers.dense(h, lw["wv"]), hkv)
     sin, cos = layers.rope(torch.tensor([pos], device=x.device), hd,
                            cfg.rope_theta)
     q, k = layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)

@@ -102,13 +102,14 @@ def _rkvgw(cfg: ModelConfig, x, x_prev, lw):
     b, t, _ = x.shape
     mu = lw["mu"]
     xr, xk, xv, xg, xw = (_lerp(x, x_prev, mu[i]) for i in range(5))
-    r = layers.dense(xr, lw["w_r"]).float().reshape(b, t, h, n)
-    k = layers.dense(xk, lw["w_k"]).float().reshape(b, t, h, n)
-    v = layers.dense(xv, lw["w_v"]).float().reshape(b, t, h, n)
+    r = layers.split_heads(layers.dense(xr, lw["w_r"]).float(), h)
+    k = layers.split_heads(layers.dense(xk, lw["w_k"]).float(), h)
+    v = layers.split_heads(layers.dense(xv, lw["w_v"]).float(), h)
     g = F.silu(layers.dense(xg, lw["w_g"]))
     dlow = torch.tanh(layers.dense(xw, lw["decay_a"]).float())
     dd = lw["decay_base"].float() + dlow @ lw["decay_b"].float()
-    log_w = -torch.clamp(torch.exp(dd), 1e-6, LOG_W_CLAMP).reshape(b, t, h, n)
+    log_w = layers.split_heads(-torch.clamp(torch.exp(dd), 1e-6, LOG_W_CLAMP),
+                               h)
     return r, k, v, g, log_w
 
 
@@ -125,12 +126,13 @@ def _wkv_chunked(r, k, v, log_w, u, s0):
     return o.permute(0, 2, 1, 3), s
 
 
-def _wkv_local(r, k, v, log_w, u, s0):
-    """``_wkv_chunked`` of DTensors on each rank's own heads: k, v and
-    log_w are placed as r is (over batch and heads; the reference places r
-    and k only, its jnp WKV taking any layout), u [H, n] and s0
-    [B, H, n, n] over the same heads, and K5 runs on the local tensors.
-    The gradient of u, whole on the batch dims, is a partial sum there."""
+def _wkv_local(r, k, v, log_w, u, s0, fn=None):
+    """``fn`` (``_wkv_chunked``, or ``_wkv_step`` for one token) of
+    DTensors on each rank's own heads: k, v and log_w are placed as r is
+    (over batch and heads; the reference places r and k only, its jnp WKV
+    taking any layout), u [H, n] and s0 [B, H, n, n] over the same heads,
+    and K5 runs on the local tensors.  The gradient of u, whole on the
+    batch dims, is a partial sum there."""
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     mesh, pl = r.device_mesh, list(r.placements)
     for p in pl:
@@ -142,7 +144,8 @@ def _wkv_local(r, k, v, log_w, u, s0):
     s_pl = [Shard(1) if p.is_shard(2) else p for p in pl]
     ul = u.redistribute(mesh, u_pl).to_local(grad_placements=u_grad)
     sl = None if s0 is None else s0.redistribute(mesh, s_pl).to_local()
-    o, s = _wkv_chunked(*(x.to_local() for x in (r, k, v, log_w)), ul, sl)
+    o, s = (fn or _wkv_chunked)(*(x.to_local() for x in (r, k, v, log_w)),
+                                ul, sl)
     b, _, h, n = r.shape
     s_shape = (b, h, n, n)
     # o comes back as a permuted view: made contiguous, as the global
@@ -184,7 +187,8 @@ def _time_mix(cfg, x, lw, shard, prev, s0):
     r = shard(r, "heads")
     k = shard(k, "heads")
     if x.shape[1] == 1:
-        o, s = _wkv_step(r, k, v, log_w, u, s0)
+        o, s = _wkv_local(r, k, v, log_w, u, s0, _wkv_step) \
+            if shlib.is_dtensor(r) else _wkv_step(r, k, v, log_w, u, s0)
     else:
         # ops.wkv_chunked takes a ragged T as the reference pads it here
         # (k = v = 0, log_w = 0 on the steps past T)
@@ -250,6 +254,9 @@ def forward(cfg: ModelConfig, params: dict, batch: dict,
     return tfm._unembed(cfg, params, x, shard), tfm._zero(x), stacked
 
 
+_STATE = ("s", "shift1", "shift2")     # a layer's cache entries
+
+
 def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
                device: str | torch.device = "cuda") -> dict:
     del max_len              # O(1) state
@@ -268,13 +275,22 @@ def init_cache(cfg: ModelConfig, batch_size: int, max_len: int,
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
             shard: layers.Shard = layers.no_shard):
-    """(logits of the last position [B, Vp], cache)."""
+    """(logits of the last position [B, Vp], cache).  On a mesh the
+    cache's leaves are the layers' states stacked (DTensors, placed by the
+    reference's cache rules when the caller places them)."""
     x = tfm._embed(cfg, params, batch, shard)
-    cache = init_cache(cfg, x.shape[0], max_len, x.device)
+    on_mesh = shlib.is_dtensor(x)
+    cache = {} if on_mesh else init_cache(cfg, x.shape[0], max_len, x.device)
+    per = {key: [] for key in _STATE}
     for i in range(cfg.num_layers):
         x, c = _block(cfg, x, tfm.layer(params, i), None, shard)
-        for key in ("s", "shift1", "shift2"):
-            cache[key][i] = c[key]        # in place into the preallocated cache
+        for key in _STATE:
+            if on_mesh:
+                per[key].append(c[key])
+            else:
+                cache[key][i] = c[key]   # in place into the preallocated cache
+    if on_mesh:
+        cache = {key: torch.stack(per[key]) for key in _STATE}
     cache["pos"] = x.shape[1]
     # unembed the last position only (see transformer.prefill)
     return tfm._unembed(cfg, params, x[:, -1:], shard)[:, 0], cache
@@ -283,13 +299,20 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,
                 tokens: torch.Tensor, shard: layers.Shard = layers.no_shard):
     """tokens [B, 1] -> (logits [B, Vp], cache).  The returned cache holds
-    the same state buffers, updated in place, and ``pos + 1``."""
+    the same state buffers, updated in place, and ``pos + 1`` (on a mesh,
+    new DTensors)."""
     x = tfm._embed(cfg, params, {"tokens": tokens}, shard)
+    on_mesh = shlib.is_dtensor(cache["s"])
+    per = {key: [] for key in _STATE}
     for i in range(cfg.num_layers):
         x, c = _block(cfg, x, tfm.layer(params, i),
-                      {key: cache[key][i] for key in ("s", "shift1",
-                                                       "shift2")}, shard)
-        for key in ("s", "shift1", "shift2"):
-            cache[key][i] = c[key]
+                      {key: cache[key][i] for key in _STATE}, shard)
+        for key in _STATE:
+            if on_mesh:
+                per[key].append(c[key])
+            else:
+                cache[key][i] = c[key]
     logits = tfm._unembed(cfg, params, x, shard)
+    if on_mesh:
+        cache = dict(cache, **{key: torch.stack(per[key]) for key in _STATE})
     return logits[:, -1], dict(cache, pos=int(cache["pos"]) + 1)

@@ -133,9 +133,9 @@ def _attn_block(cfg: ModelConfig, x: torch.Tensor, lw: dict,
     b, seq, _ = x.shape
     h = layers.rms_norm(x, lw["ln1"], cfg.norm_eps)
     h = shard(h, "act_btd_full")
-    q = layers.dense(h, lw["wq"], lw.get("bq")).view(b, seq, hq, hd)
-    k = layers.dense(h, lw["wk"], lw.get("bk")).view(b, seq, hkv, hd)
-    v = layers.dense(h, lw["wv"], lw.get("bv")).view(b, seq, hkv, hd)
+    q = layers.split_heads(layers.dense(h, lw["wq"], lw.get("bq")), hq)
+    k = layers.split_heads(layers.dense(h, lw["wk"], lw.get("bk")), hkv)
+    v = layers.split_heads(layers.dense(h, lw["wv"], lw.get("bv")), hkv)
     q, k = layers.apply_rope(q, sin, cos), layers.apply_rope(k, sin, cos)
     q = shard(q, "heads")
 
@@ -344,13 +344,29 @@ def prefill(cfg: ModelConfig, params: dict, batch: dict, max_len: int,
         x = x + _ffn_block(cfg, x, lw, shard)[0]
     if on_mesh:
         for key, xs in (("k", ks), ("v", vs)):
-            cache[key] = F.pad(torch.stack(xs).to(_dt(cfg)),
-                               (0, 0, 0, 0, 0, max_len - s))
+            cache[key] = _pad_positions(torch.stack(xs).to(_dt(cfg)),
+                                        max_len)
     cache["pos"] = s
     # unembed the last position only: the same values as the reference's
     # logits[:, -1] (norm and head act per position) without a
     # [B, S, Vp] logits slab (8 GB at minitron-4b, 8 x 1000 tokens)
     return _unembed(cfg, params, x[:, -1:], shard)[:, 0], cache
+
+
+def _pad_positions(x, max_len: int):
+    """[L, B, S, Hkv, Dh] DTensor keys or values padded with zero positions
+    to ``max_len``.  Their positions are whole on every rank (the batch and
+    heads are split), so each rank pads its own shard: DTensor's pad op
+    (torch 2.11) fails to plan a tensor whose heads are split unevenly."""
+    from torch.distributed.tensor import DTensor
+    pad = (0, 0, 0, 0, 0, max_len - x.shape[2])
+    if any(p.is_shard(2) for p in x.placements):
+        return F.pad(x, pad)
+    shape = x.shape[:2] + (max_len,) + x.shape[3:]
+    return DTensor.from_local(F.pad(x.to_local(), pad), x.device_mesh,
+                              x.placements, run_check=False, shape=shape,
+                              stride=torch.empty(shape,
+                                                 device="meta").stride())
 
 
 def decode_step(cfg: ModelConfig, params: dict, cache: dict,

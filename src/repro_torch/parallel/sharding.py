@@ -47,7 +47,7 @@ __all__ = ["ShardingRules", "make_shard_fn", "param_specs", "batch_spec",
            "state_specs", "make_param_rule", "cache_rule", "UNEVEN_OK", "DP",
            "mesh_axes", "placements", "distribute", "spec_of", "spec_leaves",
            "is_dtensor", "global_offset", "Placed", "named", "from_whole",
-           "mesh_context", "replicate_like", "unshard_pod"]
+           "mesh_context", "replicate_like", "unshard_pod", "grad_as_forward"]
 
 # activation names whose "model"-axis sharding may be uneven
 UNEVEN_OK = frozenset({"heads", "moe_experts"})
@@ -250,9 +250,62 @@ def make_shard_fn(mesh, rules: ShardingRules | None = None):
         want = placements(spec, m, x.shape)
         if list(x.placements) == want:
             return x
-        return x.redistribute(m, want)
+        return _redistribute(x, m, want)
 
     return shard
+
+
+def _uneven(shape, device_mesh, pls) -> bool:
+    """Whether ``pls`` split a dim of ``shape`` into unequal parts."""
+    for d in {p.dim for p in pls if p.is_shard()}:
+        n = 1
+        for i, p in enumerate(pls):
+            if p.is_shard(d):
+                n *= device_mesh.size(i)
+        if shape[d] % n:
+            return True
+    return False
+
+
+def _redistribute(x, device_mesh, want):
+    """``x.redistribute(device_mesh, want)``, through a whole dim where a
+    mesh dim's split moves from one tensor dim to another and either split
+    is uneven (heads that do not divide the model axis): DTensor's direct
+    move (an all-to-all) gives the ranks parts of unequal sizes, in the
+    forward and in the backward, and the collective fails.  The gradient
+    of the whole step comes back whole (``grad_as_forward``)."""
+    from torch.distributed.tensor import Replicate
+    cur = list(x.placements)
+    moves = [i for i, (c, w) in enumerate(zip(cur, want))
+             if c.is_shard() and w.is_shard() and c.dim != w.dim]
+    if moves and (_uneven(x.shape, device_mesh, cur)
+                  or _uneven(x.shape, device_mesh, want)):
+        x = grad_as_forward(x.redistribute(device_mesh, [
+            Replicate() if i in moves else c for i, c in enumerate(cur)]))
+    return x.redistribute(device_mesh, want)
+
+
+class _GradAsForward(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if tuple(g.placements) == ctx.placements:
+            return g
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def grad_as_forward(x):
+    """DTensor ``x`` as it is, its gradient placed as ``x`` is.  DTensor's
+    backward of a redistribution out of a whole tensor leaves the gradient
+    split as the redistribution's output was; where that split is uneven,
+    a view of it or a move of it to another dim comes out with sizes that
+    do not match across ranks, so a whole tensor that feeds one is kept
+    whole in the backward too."""
+    return _GradAsForward.apply(x)
 
 
 def param_specs(params_shapes, mesh, name_of,
@@ -430,9 +483,9 @@ def state_specs(tree_shapes, mesh, kind: str = "param",
 def distribute(tree, specs, device_mesh):
     """Each tensor leaf of ``tree`` as a DTensor over ``device_mesh``, placed
     by its spec in ``specs`` (``state_specs``' tree of the same shape).
-    Every rank passes the same full tensor and keeps its slice
-    (``from_whole``); a DTensor leaf (on ``device_mesh``) is
-    redistributed.  Non-tensor leaves are kept as they are."""
+    Every rank passes the same full tensor and keeps a copy of its slice
+    (``from_whole``); a DTensor leaf (on ``device_mesh``) is redistributed.
+    Non-tensor leaves are kept as they are."""
     from repro_torch import tree as tree_lib
 
     def one(x, spec):
@@ -451,17 +504,16 @@ def distribute(tree, specs, device_mesh):
 
 def from_whole(x: torch.Tensor, device_mesh, pls):
     """Whole tensor ``x`` (the same on every rank) as a DTensor placed by
-    ``pls``: this rank's slice, cut locally (a view where one is
-    contiguous).  ``distribute_tensor`` scatters from one rank instead, a
-    collective that gloo does not take for CUDA tensors (two ranks on one
-    card crashed in it)."""
+    ``pls``: a copy of this rank's slice, cut locally, so that no rank
+    keeps ``x``'s storage alive once the caller drops it.
+    ``distribute_tensor`` scatters from one rank instead, a collective
+    that gloo does not take for CUDA tensors (two ranks on one card
+    crashed in it)."""
     from torch.distributed.tensor import DTensor
-    from torch.distributed.tensor._utils import \
-        compute_local_shape_and_global_offset
-    shape, off = compute_local_shape_and_global_offset(x.shape, device_mesh,
-                                                       pls)
+    shape, off = _local_box(x.shape, device_mesh, pls)
     local = x[tuple(slice(o, o + n) for o, n in zip(off, shape))]
-    return DTensor.from_local(local.contiguous(), device_mesh, pls,
+    local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, device_mesh, pls,
                               run_check=False, shape=x.shape,
                               stride=x.stride())
 
@@ -489,10 +541,19 @@ def is_dtensor(x) -> bool:
 
 def global_offset(x) -> tuple:
     """Where this rank's local slice of DTensor ``x`` starts in each dim."""
+    return tuple(_local_box(x.shape, x.device_mesh, x.placements)[1])
+
+
+def _local_box(shape, device_mesh, pls) -> tuple:
+    """(local shape, global offset) of this rank's slice.  DTensor reads
+    the rank's coordinate through a tensor op, which ``FakeTensorMode``
+    (the dry run's trace) refuses as data-dependent: it runs outside the
+    mode, on the real coordinate."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
     from torch.distributed.tensor._utils import \
         compute_local_shape_and_global_offset
-    return tuple(compute_local_shape_and_global_offset(
-        x.shape, x.device_mesh, x.placements)[1])
+    with unset_fake_temporarily():
+        return compute_local_shape_and_global_offset(shape, device_mesh, pls)
 
 
 def mesh_context(tree):

@@ -17,10 +17,16 @@ every DTensor gathered whole:
 * ``step/<arch>``: each family's smoke step on the model mesh (metrics,
   microbatch 0's gradients, parameters, first moment);
 * ``serve``: qwen2.5-14b's prefill and one decode step on the model mesh,
-  the cache placed by the reference's cache rules.
+  the cache placed by the reference's cache rules;
+* ``uneven``: on the (pod 1, data 1, model 4) mesh, qwen2.5-14b's smoke
+  config with 6 q and 2 kv heads (``UNEVEN_HEADS``; neither divides the
+  model axis: the ranks hold 2, 2, 2 and 0 q heads), its step as
+  ``step/<arch>`` and its prefill and decode step as ``serve`` (parameters
+  from ``OUT_DIR/params_uneven.pt``).
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pathlib
 import sys
@@ -47,6 +53,13 @@ B, S = 4, 32
 POD_ARCH, POD_BATCH = "qwen2.5-14b", 8
 FAMILIES = ("qwen2.5-14b", "granite-moe-3b-a800m", "rwkv6-7b",
             "recurrentgemma-2b")
+UNEVEN_HEADS = {"num_heads": 6, "num_kv_heads": 2}
+UNEVEN_MESH = ((1, 1, 4), ("pod", "data", "model"))
+
+
+def uneven_config(cfg):
+    """``cfg`` (either package's ``ModelConfig``) with ``UNEVEN_HEADS``."""
+    return dataclasses.replace(cfg, **UNEVEN_HEADS)
 
 
 def whole(tree):
@@ -67,10 +80,10 @@ def slices(meshes):
     return out
 
 
-def params_of(out_dir, arch):
+def params_of(out_dir, arch, cfg=None):
     tree = torch.load(os.path.join(out_dir, f"params_{arch}.pt"),
                       weights_only=False)
-    return p_model.load_reference_params(get_smoke(arch), tree, "cpu")
+    return p_model.load_reference_params(cfg or get_smoke(arch), tree, "cpu")
 
 
 def placed_state(cfg, params, mesh, npod=0):
@@ -142,11 +155,12 @@ def ef_on_pods(meshes):
             "new_err": whole(new_e)}
 
 
-def family_step(out_dir, meshes, arch):
-    mesh = meshes["model"]
-    cfg = get_smoke(arch)
-    opt, params, state, _, _ = placed_state(cfg, params_of(out_dir, arch),
-                                            mesh)
+def family_step(out_dir, meshes, arch, mesh_name="model", cfg=None,
+                params_name=None):
+    mesh = meshes[mesh_name]
+    cfg = cfg or get_smoke(arch)
+    opt, params, state, _, _ = placed_state(
+        cfg, params_of(out_dir, params_name or arch, cfg), mesh)
     shard = sh.make_shard_fn(mesh)
     batch = make_batch(cfg, B, S, 0, seed=0)
     model = p_model.get_model(cfg, "cpu")
@@ -163,12 +177,12 @@ def family_step(out_dir, meshes, arch):
             "grads": grads, "params": whole(params), "m": whole(state["m"])}
 
 
-def serve(out_dir, meshes):
-    mesh = meshes["model"]
-    cfg = get_smoke(POD_ARCH)
-    params = sh.distribute(
-        params_of(out_dir, POD_ARCH),
-        sh.state_specs(params_of(out_dir, POD_ARCH), mesh, "param"), mesh)
+def serve(out_dir, meshes, mesh_name="model", cfg=None, params_name=None):
+    mesh = meshes[mesh_name]
+    cfg = cfg or get_smoke(POD_ARCH)
+    whole_params = params_of(out_dir, params_name or POD_ARCH, cfg)
+    params = sh.distribute(whole_params,
+                           sh.state_specs(whole_params, mesh, "param"), mesh)
     shard = sh.make_shard_fn(mesh)
     rng = np.random.default_rng(7)
     prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, 16)))
@@ -189,11 +203,18 @@ def main(out_dir: str) -> None:
     from torch.distributed.device_mesh import init_device_mesh
     meshes = {name: init_device_mesh("cpu", shape, mesh_dim_names=names)
               for name, (shape, names) in MESHES.items()}
+    meshes["uneven"] = init_device_mesh("cpu", UNEVEN_MESH[0],
+                                        mesh_dim_names=UNEVEN_MESH[1])
     res = {"slices": slices(meshes), "pod": pod_step(out_dir, meshes),
            "ef": ef_on_pods(meshes)}
     for arch in FAMILIES:
         res[f"step/{arch}"] = family_step(out_dir, meshes, arch)
     res["serve"] = serve(out_dir, meshes)
+    cfg = uneven_config(get_smoke(POD_ARCH))
+    res["uneven"] = {
+        "step": family_step(out_dir, meshes, POD_ARCH, "uneven", cfg,
+                            "uneven"),
+        "serve": serve(out_dir, meshes, "uneven", cfg, "uneven")}
     if dist.get_rank() == 0:
         torch.save(res, os.path.join(out_dir, "results.pt"))
     dist.barrier()

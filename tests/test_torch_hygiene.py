@@ -58,7 +58,8 @@ def test_import_leaves_jax_out_of_the_process():
             "repro_torch.lifecycle.degradation, "
             "repro_torch.lifecycle.expansion, repro_torch.parallel, "
             "repro_torch.parallel.sharding, repro_torch.launch.mesh, "
-            "repro_torch.launch.train, repro_torch.models.model\n"
+            "repro_torch.launch.train, repro_torch.models.model, "
+            "repro_torch.launch.hlostats, repro_torch.launch.dryrun\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n"

@@ -16,6 +16,11 @@ leaf's largest entry, the parameters after one AdamW step under
 * the model mesh: one smoke config of each family that shards differently
   (dense, moe with EP, ssm, hybrid), and a dense prefill plus one decode
   step with the cache placed by the reference's cache rules;
+* heads that do not divide the model axis: on a (pod 1, data 1, model 4)
+  mesh, qwen2.5-14b's smoke config with 6 q and 2 kv heads, its step
+  against both packages' one-process steps by the same rules, its prefill
+  and one decode step against both packages' logits (the reference's
+  within ``test_torch_models``' ATOL/RTOL);
 * a checkpoint saved on the pod mesh and restored onto the model mesh and
   onto one process, every leaf bit-equal;
 * DTensor's slices on both meshes against ``_torch_mesh.gspmd_slices``.
@@ -37,13 +42,16 @@ import _torch_train_parity as tp  # noqa: E402
 from _torch_mesh import (MESHES, SLICE_CASES, UNEVEN_CASES,  # noqa: E402
                          gspmd_slices)
 from _torch_multipod_worker import (FAMILIES, LR, POD_ARCH,  # noqa: E402
-                                    POD_BATCH, S)
+                                    POD_BATCH, B, S, uneven_config)
 
+from repro.configs import get_smoke as r_get_smoke  # noqa: E402
 from repro.data import make_batch as r_make_batch  # noqa: E402
+from repro.models import layers as r_layers  # noqa: E402
 from repro.models import model as r_model  # noqa: E402
 from repro.optim import AdamW as RAdamW  # noqa: E402
 from repro_torch import tree as tree_lib  # noqa: E402
 from repro_torch.checkpoint import restore_checkpoint  # noqa: E402
+from repro_torch.configs import get_smoke  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.models import model as p_model  # noqa: E402
 from repro_torch.optim import AdamW, ef_compress_mean  # noqa: E402
@@ -87,6 +95,53 @@ def _pod_one_process():
     return params, state, {k: float(v) for k, v in metrics.items()}
 
 
+def _uneven_tree():
+    """The reference's parameters (numpy) of the uneven-heads variant."""
+    rcfg = uneven_config(r_get_smoke(POD_ARCH))
+    rparams = jax.jit(r_model.get_model(rcfg).init_params)(
+        jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, rparams)
+
+
+def _uneven_reference(tree):
+    """The reference's one-process step of the uneven-heads variant, and
+    the gradient of its total loss on microbatch 0."""
+    rcfg = uneven_config(r_get_smoke(POD_ARCH))
+    rparams = jax.tree.map(jnp.asarray, tree)
+    model = r_model.get_model(rcfg)
+    b = {k: jnp.asarray(v) for k, v in
+         r_make_batch(rcfg, B, S, 0, seed=0).items()}
+
+    def loss(p, mb):
+        return r_model._loss_fn(rcfg, model, p, mb, r_layers.no_shard)
+
+    _, grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        rparams, {k: v[0] for k, v in b.items()})
+    opt = RAdamW(lr=LR)
+    step = jax.jit(r_model.make_train_step(rcfg, opt))
+    params, state, metrics = step(rparams, opt.init(rparams), b)
+    return (jax.tree.map(np.asarray, grads), jax.tree.map(np.asarray, params),
+            jax.tree.map(np.asarray, state),
+            {k: float(v) for k, v in metrics.items()})
+
+
+def _uneven_one_process(tree):
+    """The port's one-process step of the uneven-heads variant, and the
+    gradient of its microbatch 0."""
+    pcfg = uneven_config(get_smoke(POD_ARCH))
+    batch = make_batch(pcfg, B, S, 0, seed=0)
+    params = p_model.load_reference_params(pcfg, tree, "cpu")
+    mb = p_model._device_batch({k: v[0] for k, v in batch.items()},
+                               torch.device("cpu"))
+    _, grads = p_model._grads(pcfg, p_model.get_model(pcfg, "cpu"), params,
+                              mb)
+    opt = AdamW(lr=LR)
+    state = opt.init(params)
+    step = p_model.make_train_step(pcfg, opt, device="cpu")
+    params, state, metrics = step(params, state, batch)
+    return grads, params, state, {k: float(v) for k, v in metrics.items()}
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """Start the 4 ranks, compute both packages' one-process results while
@@ -94,6 +149,8 @@ def world(tmp_path_factory):
     out = tmp_path_factory.mktemp("multipod")
     for arch in sorted(set(FAMILIES) | {POD_ARCH}):
         torch.save(tp.setup(arch)[3], out / f"params_{arch}.pt")
+    uneven_tree = _uneven_tree()
+    torch.save(uneven_tree, out / "params_uneven.pt")
     env = dict(os.environ, WORLD_SIZE="4", MASTER_ADDR="127.0.0.1",
                MASTER_PORT=str(_free_port()), OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT / "src"))
@@ -107,6 +164,9 @@ def world(tmp_path_factory):
         one[f"port/{arch}"] = tp.port_step(arch)
         one[f"ref_grads/{arch}"] = tp.reference_grads(arch)
         one[f"port_grads/{arch}"] = tp.port_grads(arch)
+    one["uneven"] = _uneven_one_process(uneven_tree)
+    one["uneven_ref"] = _uneven_reference(uneven_tree)
+    one["uneven_tree"] = uneven_tree
     errs = []
     try:
         for p in procs:
@@ -197,6 +257,70 @@ def test_serving_on_the_model_mesh_matches_one_process(world):
         scale = float(w.abs().max())
         np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
                                    atol=1e-5 * scale, err_msg=name)
+
+
+def test_uneven_heads_step_matches_one_process(world):
+    """6 q and 2 kv heads over a model axis of 4 (the ranks hold 2, 2, 2
+    and 0 q heads; 1, 1, 0 and 0 kv heads): the A8.2 rules against the
+    port's one-process step."""
+    res, one, _ = world
+    got = res["uneven"]["step"]
+    grads, params, state, metrics = one["uneven"]
+    tp.check_metrics(got["metrics"], metrics)
+    tp.check_grads(got["grads"], tree_lib.unflatten(
+        params, [g.numpy() for g in grads]))
+    tp.check_params(got["params"], _numpy(params), _numpy(state["m"]))
+
+
+def test_uneven_heads_serving_matches_one_process(world):
+    """The uneven-heads variant's prefill and one decode step on the
+    (1, 1, 4) mesh against one process's logits."""
+    res, one, _ = world
+    got = res["uneven"]["serve"]
+    assert got["cache_k"] == ["(Shard(dim=1), Shard(dim=1), Shard(dim=2))"]
+    pcfg = uneven_config(get_smoke(POD_ARCH))
+    params = p_model.load_reference_params(pcfg, one["uneven_tree"], "cpu")
+    logits, cache = p_model.make_prefill_step(pcfg, 20, "cpu")(
+        params, {"tokens": got["prompt"]})
+    logits2, _ = p_model.make_decode_step(pcfg, "cpu")(params, cache,
+                                                       got["next"])
+    for name, g, w in (("prefill", got["prefill"], logits),
+                       ("decode", got["decode"], logits2)):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
+
+
+def test_uneven_heads_step_matches_reference(world):
+    """The uneven-heads step on the (1, 1, 4) mesh against the reference's
+    one-process step and microbatch-0 gradient, by the A8.2 rules."""
+    res, one, _ = world
+    got = res["uneven"]["step"]
+    grads, rparams, rstate, rmetrics = one["uneven_ref"]
+    tp.check_metrics(got["metrics"], rmetrics)
+    tp.check_grads(got["grads"], grads)
+    tp.check_params(got["params"], rparams, rstate["m"])
+
+
+# the port's logits against the reference's (tests/test_torch_models.py)
+REF_ATOL, REF_RTOL = 1e-4, 1e-4
+
+
+def test_uneven_heads_serving_matches_reference(world):
+    """The uneven-heads prefill and one decode step on the (1, 1, 4) mesh
+    against the reference's on the same tokens."""
+    res, one, _ = world
+    got = res["uneven"]["serve"]
+    rcfg = uneven_config(r_get_smoke(POD_ARCH))
+    rparams = jax.tree.map(jnp.asarray, one["uneven_tree"])
+    logits, cache = jax.jit(r_model.make_prefill_step(rcfg, 20))(
+        rparams, {"tokens": jnp.asarray(got["prompt"].numpy(), jnp.int32)})
+    logits2, _ = jax.jit(r_model.make_decode_step(rcfg))(
+        rparams, cache, jnp.asarray(got["next"].numpy(), jnp.int32))
+    for name, g, w in (("prefill", got["prefill"], logits),
+                       ("decode", got["decode"], logits2)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=REF_ATOL,
+                                   rtol=REF_RTOL, err_msg=name)
 
 
 def test_checkpoint_from_the_pod_mesh_restores_anywhere(world):
