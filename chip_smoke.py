@@ -47,7 +47,8 @@ Phases (any failure exits non-zero; no phase catches and continues):
    and the model's [8, 1000, 64, 64] projections as [B, H, T, n] views;
    untimed at T=1024, phase 17's)
    against their plain versions on the card, within stated tolerances;
-   device times beside the bound and, for K4, beside
+   device times (calls of over 1e10 flops in batches of 10) beside the
+   bound and, for K4, beside
    ``scaled_dot_product_attention`` (timed here only, as a yardstick),
    beside the earlier CUDA-core kernel on the same bf16 inputs and beside
    the time of one call with its launching (``call_ms``); the decode row
@@ -199,7 +200,20 @@ Phases (any failure exits non-zero; no phase catches and continues):
    probes traced here on fake tensors), the step's seconds and
    ``model_flops / chips`` over them as a share of 989 TFLOP/s; and
    ``analytic_memory`` of phase 17b's train shape beside 17b's peak;
-20. summary — one JSON line with every kernel, then the device line last.
+20. the planner's last contracts — (a) ``get_engine("dual-pallas",
+   iters=100, devices=1)`` twice on 4 of phase 3's instances (K1 at [4,
+   512, 512]): the second solve adds no ``dual.*`` program
+   (``compile_cache_sizes``) and gives the first's bits, K1 launched in
+   both, and this process built the kernel library or found it built
+   (``aot.compiles`` + ``aot.hits`` = 1); (b) this script again as a warm
+   process (``--aot-warm``) on the same seeded instances: no nvcc
+   (``build_seconds()`` None, ``aot.compiles`` 0, ``aot.hits`` 1), bounds
+   bit-equal to (a)'s, its wall beside (a)'s; (c) a ``BatchPlan.refill`` of
+   (a)'s plan with 4 other phase-3 instances adds no ``dual.*`` program;
+   (d) ``devices=None`` is one card (``get_engine("dual")``'s
+   ``last_plan``) and an explicit ``devices=torch.cuda.device_count()``
+   resolves to the count;
+21. summary — one JSON line with every kernel, then the device line last.
 
 Phase 2 also closes K2 tiles wider than 128 (t = 129, 200, 256: padded
 and closed blocked) and ``fw_apsp_blocked(w, t=256)``, bit-equal to plain
@@ -210,7 +224,7 @@ phase 4's three, each ``generate`` of phases 7-8, phase 9a's and 9b's card
 solves, phase 10's figure, phase 11's two streamed closures, each search
 of phases 12-13, phase 13's figure, each engine's pile of phase 14 and
 each call of phase 15, phase 17b's run, each gradient of phase 17c,
-phase 18a's sharded step and phase 19's step)
+phase 18a's sharded step, phase 19's step and each solve of phase 20)
 and read just after it; a kernel
 of a path that was not launched fails the run.  The summary reports every
 path's own counts, never a sum over runs: ``launches`` of a kernel is from the first path
@@ -251,6 +265,11 @@ BF16_FLOP_PER_S = 989e12     # bf16 tensor cores, dense (H100 SXM)
 TF32_FLOP_PER_S = 495e12     # TF32 tensor cores, dense (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12    # H100 SXM HBM3
 TIMING_RUNS = 30
+# phase 6 times its calls of over PHASE17_HEAVY_FLOPS (the prefill rows and
+# K5 at T = 1000) in batches of 10 (0.2-34 ms a call, so a batch lasts 2 ms
+# or more); batches of 30 took the phase from 24.9 s to 52.3 s on an H100
+# (tools/smoke_phases.py 6 6:heavy=30; ROADMAP S1)
+PHASE6_HEAVY_RUNS = 10
 # Fig. 5 runs a point in phase 10: 3 of the paper's 10, so that phases 11-13
 # fit the script's time (ROADMAP S1); and the processes its HiGHS LPs take
 FIG5_RUNS = 3
@@ -964,8 +983,8 @@ def phase_adversarial(graphs, lp, traffic, topo512, runs) -> dict:
     budget on (a) its two-cluster family (K1 squaring), held against HiGHS
     on the worst TM and strictly below the baseline's ub, and (b) phase
     3's RRG(512, 16), 8 servers a switch (auto -> ell-bf -> K3 slab).
-    Every candidate hose-feasible, 5 executes, one compile key; wall,
-    instances/s and the device's idle share over one profiled round."""
+    Every candidate hose-feasible, 1 + rounds executes, one compile key;
+    wall, instances/s and the device's idle share over one profiled round."""
     from repro_torch.core import adversarial
     from repro_torch.core.plan import BatchPlan
     from repro_torch.kernels import _build
@@ -1712,13 +1731,15 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
                                    lk_valid=valid, window=window)
         plain = functools.partial(kfa.flash_attention_plain, causal=True,
                                   lk_valid=valid, window=window)
+        runs = (PHASE6_HEAVY_RUNS if flops > PHASE17_HEAVY_FLOPS
+                else TIMING_RUNS)
         row = {"kernel": "flash_attention", "shape": label, "route": route,
                "source": K4_SOURCES[route],
-               "ms": time_ms(each(kernel)),
+               "ms": time_ms(each(kernel), runs),
                "call_ms": call_ms(lambda: kernel(q, k, v)),
-               "plain_ms": time_ms(each(plain)),
+               "plain_ms": time_ms(each(plain), runs),
                "library_ms": time_ms([sdpa_call(*x, valid, window)
-                                      for x in inputs]),
+                                      for x in inputs], runs),
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
                "tolerance": tol, **own}
         if route == "f32":
@@ -1810,10 +1831,13 @@ def phase_lm_kernels(kfa, kwkv) -> dict[str, dict]:
         bnd, kind = flop_bound_ms(flops, FP32_FLOP_PER_S, nbytes)
         shape = (f"[8,{t},64,64] f32 as [B,H,T,n] views" if heads
                  else f"[{bh},{t},{n}] f32") + (" + s0" if with_s0 else "")
+        runs = (PHASE6_HEAVY_RUNS if flops > PHASE17_HEAVY_FLOPS
+                else TIMING_RUNS)
         row = {"kernel": "wkv_chunked", "shape": shape,
-               "ms": time_ms(lambda: kwkv.wkv_chunked(r, k, v, log_w, u, s0)),
+               "ms": time_ms(lambda: kwkv.wkv_chunked(r, k, v, log_w, u, s0),
+                             runs),
                "plain_ms": time_ms(lambda: kwkv.wkv_chunked_plain(
-                   r, k, v, log_w, u, s0)),
+                   r, k, v, log_w, u, s0), runs),
                "library_ms": None,
                "bound_ms": bnd, "bound_kind": kind, "max_abs_err": err,
                "tolerance": K5_TOL}
@@ -3415,6 +3439,148 @@ def phases_11_to_13(card, graphs, kell, lp, traffic, het, figures, topo512,
         f"{time.perf_counter() - t0:.1f} s)")
 
 
+AOT_LANES = 4     # phase 20: K1 at [4, 512, 512]
+AOT_ITERS = 100
+AOT_WARM_TIMEOUT_S = 180
+
+
+def aot_solve(name: str, engine, topos, dems, runs) -> tuple[list, float]:
+    """One solve with K1's counts reset just before and read just after;
+    (bounds, wall seconds)."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = engine.solve_batch(topos, dems)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    record_path(name, runs, ["minplus_acc"], steps=max(
+        r.meta["iterations"] for r in res) + 1)
+    return [r.throughput for r in res], wall
+
+
+def aot_warm() -> None:
+    """Phase 20b's warm process: the same seeded instances through the
+    same engine; prints one JSON line (whether nvcc ran, the library's
+    counts, bounds, walls)."""
+    t_proc = time.perf_counter()
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device is available")
+    from repro_torch.core import get_engine, graphs, traffic
+    from repro_torch.core.plan import compile_cache_sizes
+    from repro_torch.kernels import _build
+    topos, dems = instances(graphs, traffic, 512, 16, 8, range(AOT_LANES))
+    runs: list[dict] = []
+    eng = get_engine("dual-pallas", iters=AOT_ITERS, devices=1)
+    bounds, wall = aot_solve("phase 20b warm process", eng, topos, dems,
+                             runs)
+    sizes = compile_cache_sizes()
+    print(json.dumps({"aot_warm": {
+        "aot": {k: sizes[k] for k in ("aot.compiles", "aot.hits")},
+        "build_seconds": _build.build_seconds(), "bounds": bounds,
+        "minplus_acc": runs[-1]["launches"]["minplus_acc"],
+        "solve_s": wall, "process_s": time.perf_counter() - t_proc}}),
+        flush=True)
+
+
+def phase_aot(card: str, topos, dems, runs) -> dict:
+    """Phase 20: the kernel library as the port's one compile, in this
+    process and in a warm one; no new program across a second solve or a
+    refill; ``devices``."""
+    from repro_torch.core import get_engine
+    from repro_torch.core.plan import compile_cache_sizes, device_count
+    from repro_torch.kernels import _build
+    pile = topos[:AOT_LANES], dems[:AOT_LANES]
+    rec: dict = {}
+
+    def dual_delta(before):
+        after = compile_cache_sizes()
+        return {k: after[k] - before[k] for k in after
+                if k.startswith("dual.")}
+
+    # (a) one process: the second solve of a shape adds no program
+    eng = get_engine("dual-pallas", iters=AOT_ITERS, devices=1)
+    first, first_s = aot_solve("phase 20a dual-pallas first solve", eng,
+                               *pile, runs)
+    before = compile_cache_sizes()
+    second, second_s = aot_solve("phase 20a dual-pallas second solve", eng,
+                                 *pile, runs)
+    delta = dual_delta(before)
+    if not delta or any(delta.values()):
+        raise SystemExit(f"chip_smoke: phase 20a second solve added dual "
+                         f"programs: {delta}")
+    if second != first:
+        raise SystemExit(f"chip_smoke: phase 20a bounds differ between two "
+                         f"solves: {first} {second}")
+    aot = {k: before[k] for k in ("aot.compiles", "aot.hits")}
+    if sum(aot.values()) != 1:
+        raise SystemExit(f"chip_smoke: phase 20a library counts {aot}")
+    rec["a"] = {"aot": aot, "nvcc_s": _build.build_seconds(),
+                "bounds": first, "delta": delta, "first_solve_s": first_s,
+                "second_solve_s": second_s}
+
+    # (b) a warm process on the same sources, started now: its start-up
+    # overlaps (c) and (d)
+    t_child = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--aot-warm"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        # (c) a refill of (a)'s plan adds no dual program
+        plan = eng.plan(*pile)
+        before = compile_cache_sizes()
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        refilled = plan.refill(topos[AOT_LANES:2 * AOT_LANES],
+                               dems[AOT_LANES:2 * AOT_LANES]).execute(
+            solver="dual", device="cuda", **eng._solver_kw())
+        record_path("phase 20c refill", runs, ["minplus_acc"],
+                    steps=AOT_ITERS + 1)
+        delta = dual_delta(before)
+        if not delta or any(delta.values()):
+            raise SystemExit(f"chip_smoke: phase 20c refill added dual "
+                             f"programs: {delta}")
+        if plan.stats.compile_keys != ((512, AOT_LANES),):
+            raise SystemExit(f"chip_smoke: phase 20c compile keys "
+                             f"{plan.stats.compile_keys}")
+        if not all(np.isfinite(r.value) and r.value > 0 for r in refilled):
+            raise SystemExit("chip_smoke: phase 20c refill bounds")
+        rec["c"] = {"delta": delta, "compile_keys": plan.stats.compile_keys}
+
+        # (d) devices=None is one card; an explicit count is every card
+        dual = get_engine("dual", iters=10)
+        res = dual.solve_batch(*pile)
+        ncards = torch.cuda.device_count()
+        if dual.last_plan.devices != 1 or \
+                any(r.meta["devices"] != 1 for r in res) or \
+                device_count(ncards) != ncards:
+            raise SystemExit(f"chip_smoke: phase 20d devices: "
+                             f"{dual.last_plan}, {ncards} card(s)")
+        rec["d"] = {"devices_none": dual.last_plan.devices,
+                    "devices_all": device_count(ncards),
+                    "cuda_device_count": ncards}
+        out, err = child.communicate(timeout=AOT_WARM_TIMEOUT_S)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    child_s = time.perf_counter() - t_child
+    if child.returncode != 0:
+        raise SystemExit(f"chip_smoke: phase 20b warm process exited "
+                         f"{child.returncode}:\n{err[-4000:]}")
+    warm = json.loads(out.strip().splitlines()[-1])["aot_warm"]
+    if warm["build_seconds"] is not None or \
+            warm["aot"] != {"aot.compiles": 0, "aot.hits": 1} or \
+            warm["minplus_acc"] == 0:
+        raise SystemExit(f"chip_smoke: phase 20b warm process: {warm}")
+    if warm["bounds"] != first:
+        raise SystemExit(f"chip_smoke: phase 20b bounds differ from "
+                         f"20a's: {warm['bounds']} {first}")
+    rec["b"] = {**warm, "wall_from_spawn_s": child_s}
+    log(json.dumps({"phase 20": rec, "card": card}))
+    return rec
+
+
 def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3624,7 +3790,16 @@ def main() -> None:
         f"max abs err {dry['k4_layer0']['max_abs_err']:.3g} (phase wall "
         f"{time.perf_counter() - t0:.1f} s)")
 
-    # phase 20: summary
+    # phase 20: the planner's last contracts (compile counts, devices)
+    t0 = time.perf_counter()
+    aot = phase_aot(card, topos, dems, runs)
+    log(f"{card}: phase 20 first solve {aot['a']['first_solve_s']:.2f} s, "
+        f"second {aot['a']['second_solve_s']:.2f} s, warm process "
+        f"{aot['b']['process_s']:.2f} s ({aot['b']['solve_s']:.2f} s "
+        f"solving, no nvcc), devices=None -> {aot['d']['devices_none']} "
+        f"(phase wall {time.perf_counter() - t0:.1f} s)")
+
+    # phase 21: summary
     meta = {
         "minplus_acc": ("src/repro_torch/csrc/minplus.cu",
                         "src/repro/kernels/minplus.py:38 _minplus_kernel "
@@ -3724,4 +3899,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--aot-warm"]:
+        aot_warm()
+    else:
+        main()

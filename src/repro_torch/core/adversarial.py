@@ -131,6 +131,7 @@ def find_worst_tm(topo: Topology, *, seed: int = 0, rounds: int = 4,
                   proj_iters: int = 8, baseline: np.ndarray | None = None,
                   iters: int = 300, lr: float = 0.08, tol: float = 1e-3,
                   check_every: int = 25, backend: str | None = None,
+                  devices: int | None = None,
                   max_lanes: int | None = None,
                   bucket: str | int | None = "pow2",
                   keep_fleet: bool = False,
@@ -145,8 +146,10 @@ def find_worst_tm(topo: Topology, *, seed: int = 0, rounds: int = 4,
     ``seed``), lanes 1.. are logit-parameterised and take an Adam step
     (``lr_tm``) along the pulled-back demand gradient.  The worst TM is
     certified by ``solver="primal"`` on the same plan.  ``iters`` / ``lr``
-    / ``tol`` / ``check_every`` / ``backend`` are the inner solver's knobs.
-    Seeded and deterministic on one device.
+    / ``tol`` / ``check_every`` / ``backend`` are the inner solver's knobs;
+    ``devices`` / ``max_lanes`` / ``bucket`` the plan's (``devices``: each
+    chunk's lanes over that many local cards, ``None`` = all of them).
+    Seeded and deterministic; a lane's bits do not depend on ``devices``.
     """
     if not isinstance(topo, Topology):
         raise ValueError(
@@ -199,7 +202,8 @@ def find_worst_tm(topo: Topology, *, seed: int = 0, rounds: int = 4,
             fleet.extend(np.asarray(d, np.float64) for d in dems[1:])
         if plan is None:
             plan = BatchPlan.build([topo] * candidates, dems, bucket=bucket,
-                                   max_lanes=max_lanes)
+                                   max_lanes=max_lanes, devices=devices,
+                                   device=dev)
         else:
             plan = plan.refill([topo] * candidates, dems)
         solved = plan.execute(solver="dual-demgrad", device=dev, **solver_kw)

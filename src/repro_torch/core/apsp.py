@@ -154,11 +154,7 @@ def _apsp_forward(w: torch.Tensor, backend: str, d_max: int | None,
     return d
 
 
-def _sum_sources(x: torch.Tensor) -> torch.Tensor:
-    """Sum ``x`` [B, S, ...] over S by pairwise halving: every output
-    element is added in an order fixed by S alone, so the result does not
-    depend on the batch size, the chunk width or the device's reduction
-    kernel."""
+def _halving_sum(x: torch.Tensor) -> torch.Tensor:
     while x.shape[1] > 1:
         h = x.shape[1] // 2
         y = x[:, :h] + x[:, h:2 * h]
@@ -166,6 +162,31 @@ def _sum_sources(x: torch.Tensor) -> torch.Tensor:
             y[:, h - 1:h] += x[:, 2 * h:]
         x = y
     return x[:, 0]
+
+
+class _SumSourcesFn(torch.autograd.Function):
+    # the gradient of a sum is its upstream gradient on every term: each
+    # term sits on one path of the halving tree, so this is the bits
+    # autograd would give through the halving, without its ~3 launches a
+    # level (slices' zeros and copies)
+    @staticmethod
+    def forward(ctx, x):
+        ctx.shape = x.shape
+        return _halving_sum(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.unsqueeze(1).expand(ctx.shape)
+
+
+def _sum_sources(x: torch.Tensor) -> torch.Tensor:
+    """Sum ``x`` [B, S, ...] over S by pairwise halving: every output
+    element is added in an order fixed by S alone, so the result does not
+    depend on the batch size, the chunk width or the device's reduction
+    kernel."""
+    if x.requires_grad:
+        return _SumSourcesFn.apply(x)
+    return _halving_sum(x)
 
 
 def _sp_dag_grad(w: torch.Tensor, d: torch.Tensor,

@@ -112,12 +112,13 @@ class ExactLPEngine:
 
 class _PlannedEngine:
     """Shared planner plumbing: ``solve_batch`` builds a ``BatchPlan``
-    (``bucket``, ``max_lanes``, ``devices`` = 1) and executes it on
-    ``device``.  ``coarsen`` contracts server leaves onto their switches
-    first; ``on_disconnected`` (None / ``"raise"`` / ``"drop"``) decides
-    what a demanded pair with no path means, as in the reference; ``tol``
-    / ``check_every`` stop lanes early; ``backend``, ``d_max`` and
-    ``max_rounds`` go to the APSP."""
+    (``bucket``, ``max_lanes``, ``devices``: each chunk's lanes sharded
+    over that many local cards, ``None`` = one; on the CPU that many
+    shards in turn) and executes it on ``device``.  ``coarsen``
+    contracts server leaves onto their switches first; ``on_disconnected``
+    (None / ``"raise"`` / ``"drop"``) decides what a demanded pair with no
+    path means, as in the reference; ``tol`` / ``check_every`` stop lanes
+    early; ``backend``, ``d_max`` and ``max_rounds`` go to the APSP."""
 
     batches = True
     solver: str = "dual"
@@ -181,7 +182,7 @@ class _PlannedEngine:
         topos, dems = self._coarsen_instances(topos, dems)
         return BatchPlan.build(topos, dems, bucket=self.bucket,
                                max_lanes=self.max_lanes,
-                               devices=self.devices)
+                               devices=self.devices, device=self.device)
 
     def _apply_disconnection_policy(self, topos, dems):
         if self.on_disconnected is None:

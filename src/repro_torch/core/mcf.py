@@ -14,9 +14,15 @@ an explicit [B, N, N] batch and a host loop.  A lane that meets the
 early-stop test freezes its state (``torch.where`` on a per-lane ``done``
 mask) while the others go on, and the host reads ``done`` once per
 ``check_every`` window.  Adam and the learning rate run in float32, as in
-the reference.  Mixed sizes are padded up to a common size with per-lane
-``n_valid``: padded nodes carry zero capacity and demand and ``_INF``
-edges, so they add nothing to the ratio or its gradient.
+the reference.  The ratio's two sums over the [N, N] pairs run together,
+stacked, by pairwise halving in an order fixed by N
+(``apsp._sum_sources``), as the SP-DAG deposits do: a lane's bits then do
+not depend on its batch, so chunks and shards of a plan give every lane
+the same bits on the card too (a CUDA reduction's order depends on the
+number of lanes).  Mixed sizes are padded
+up to a common size with per-lane ``n_valid``: padded nodes carry zero
+capacity and demand and ``_INF`` edges, so they add nothing to the ratio
+or its gradient.
 
 ``solve_dual_demgrad_batch`` is the same descent that also returns each
 lane's Danskin demand gradient at the final lengths l*: the final ratio's
@@ -24,26 +30,80 @@ forward already holds dist_l*, so the gradient ``−dist_l*(s, t) / α`` on
 valid pairs costs no APSP beyond it and no backward.
 
 Entry points take ``device`` (default ``"cuda"``); without a card they
-raise unless the caller asks for ``"cpu"``.
+raise unless the caller asks for ``"cpu"``.  ``compile_cache_sizes``
+counts the programs each entry point has run (see there).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import apsp as apsp_mod
-from repro_torch.core.apsp import _INF, normalize_backend
+from repro_torch.core.apsp import _INF, _sum_sources, normalize_backend
 from repro_torch.core.graphs import (Topology, as_cap, connected_components,
                                      degree_stats)
 from repro_torch.device import resolve_device
 
 __all__ = ["DualResult", "DualBatchResult", "DualDemgradBatchResult",
            "solve_dual", "solve_dual_batch", "solve_dual_demgrad_batch",
-           "aspl", "drop_disconnected",
-           "resolve_backend_density", "resolve_device", "_INF"]
+           "aspl", "drop_disconnected", "jit_cache_size",
+           "compile_cache_sizes", "resolve_backend_density",
+           "resolve_device", "_INF"]
+
+# the distinct program keys each entry point has run in this process
+_PROGRAMS: dict[str, set] = {"solve": set(), "solve_batch": set(),
+                             "solve_demgrad_batch": set()}
+
+
+def _abstract(x: Any) -> tuple:
+    """(shape, dtype) of one argument, as jax abstracts it: a Python float
+    is a float32 scalar, an int an int32 one."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), str(x.dtype).removeprefix("torch.")
+    if isinstance(x, (np.ndarray, np.generic)):
+        return tuple(x.shape), str(x.dtype)
+    if isinstance(x, int):
+        return (), "int32"
+    if isinstance(x, float):
+        return (), "float32"
+    raise TypeError(f"cannot key an argument of type {type(x).__name__}")
+
+
+def program_key(args: Sequence[Any], static_kw: Mapping[str, Any]) -> tuple:
+    """A program's identity: each argument's (shape, dtype) and the repr of
+    each static kwarg — what a compiling runtime keys its programs by."""
+    return (tuple(_abstract(a) for a in args),
+            tuple(sorted((k, repr(v)) for k, v in static_kw.items())))
+
+
+def run_program(programs: dict[str, set], entry: str, fn, args: tuple,
+                static_kw: dict):
+    """Run ``fn(*args, **static_kw)`` as ``entry``'s program, noting its
+    ``program_key`` in ``programs[entry]``."""
+    programs[entry].add(program_key(args, static_kw))
+    return fn(*args, **static_kw)
+
+
+def jit_cache_size(*programs: set) -> int:
+    """Total program count of the given entry points' key sets (the
+    reference sums its jitted callables' caches).  Never None: the port
+    always knows what it ran."""
+    return sum(len(p) for p in programs)
+
+
+def compile_cache_sizes() -> dict[str, int]:
+    """Programs per dual entry point.  The port compiles no program per
+    shape (its kernels are one library, built once by ``kernels._build``),
+    so each entry point counts the distinct (shapes, dtypes, static
+    kwargs) keys it has run in this process: the programs a compiling
+    runtime would hold (``program_key``).  Benchmarks report deltas of
+    this to show "one program per bucket"."""
+    return {k: jit_cache_size(v) for k, v in _PROGRAMS.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,13 +236,16 @@ def _dual_ratio(z, cap, dem, edge_mask, pair_mask, eye, backend, d_max,
     w = torch.where(eye, 0.0, w)
     dist = apsp_mod.apsp(w, backend, d_max, max_rounds)
     pair_dist = torch.where(pair_mask, dist, 0.0)
-    alpha = (dem * pair_dist).sum(dim=(1, 2))
-    d_val = (cap * l * edge_mask).sum(dim=(1, 2))
+    bsz, n, _ = l.shape
+    # both sums in one halving: [B, N*N, 2] -> [B, 2]
+    alpha, d_val = _sum_sources(torch.stack(
+        [dem * pair_dist, cap * l * edge_mask], -1).reshape(
+            bsz, n * n, 2)).unbind(-1)
     return (torch.log(d_val) - torch.log(alpha), d_val / alpha, pair_dist,
             alpha)
 
 
-def _descend(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
+def _descend(caps, dems, n_valid, lr, tol, *, iters, check_every, backend,
              d_max, max_rounds, demgrad=False):
     """Masked Adam descent over a batch of (possibly padded) instances.
     Returns (best bound, final ratio, iterations, demand gradient) per
@@ -242,9 +305,10 @@ def _descend(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
 
 def _descend_batch(caps, dems, *, n_valid, iters, lr, tol, check_every,
                    use_pallas, backend, d_max, mean_degree, max_rounds,
-                   device, demgrad):
+                   device, demgrad, entry):
     """Host half of a batched solve: stack, resolve the backend and its
-    table stats, and run ``_descend`` on ``device``; None when empty."""
+    table stats, and run ``_descend`` on ``device`` as ``entry``'s program;
+    None when empty."""
     dev = resolve_device(device)
     backend = normalize_backend(backend, use_pallas)
     if len(caps) != len(dems):
@@ -260,12 +324,15 @@ def _descend_batch(caps, dems, *, n_valid, iters, lr, tol, check_every,
         n_valid = np.full(caps.shape[0], caps.shape[1], np.int32)
     backend, d_max = resolve_backend_density(
         backend, caps, n=caps.shape[1], d_max=d_max, mean_degree=mean_degree)
-    return _descend(
-        torch.as_tensor(caps, dtype=torch.float32, device=dev),
-        torch.as_tensor(dems, dtype=torch.float32, device=dev),
-        torch.as_tensor(np.asarray(n_valid), dtype=torch.int32, device=dev),
-        iters=iters, lr=lr, tol=tol, check_every=check_every,
-        backend=backend, d_max=d_max, max_rounds=max_rounds, demgrad=demgrad)
+    args = (torch.as_tensor(caps, dtype=torch.float32, device=dev),
+            torch.as_tensor(dems, dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(n_valid), dtype=torch.int32,
+                            device=dev), lr, tol)
+    static_kw = dict(iters=iters, check_every=check_every, backend=backend,
+                     d_max=d_max, max_rounds=max_rounds)
+    return run_program(_PROGRAMS, entry,
+                       functools.partial(_descend, demgrad=demgrad),
+                       args, static_kw)
 
 
 def solve_dual_batch(caps, dems, *, n_valid=None, iters: int = 800,
@@ -284,7 +351,7 @@ def solve_dual_batch(caps, dems, *, n_valid=None, iters: int = 800,
                          tol=tol, check_every=check_every,
                          use_pallas=use_pallas, backend=backend, d_max=d_max,
                          mean_degree=mean_degree, max_rounds=max_rounds,
-                         device=device, demgrad=False)
+                         device=device, demgrad=False, entry="solve_batch")
     if out is None:
         return DualBatchResult(np.zeros(0, np.float32),
                                np.zeros(0, np.float32), np.zeros(0, np.int32))
@@ -311,7 +378,8 @@ def solve_dual_demgrad_batch(caps, dems, *, n_valid=None, iters: int = 800,
                          tol=tol, check_every=check_every,
                          use_pallas=use_pallas, backend=backend, d_max=d_max,
                          mean_degree=mean_degree, max_rounds=max_rounds,
-                         device=device, demgrad=True)
+                         device=device, demgrad=True,
+                         entry="solve_demgrad_batch")
     if out is None:
         z = np.zeros(0, np.float32)
         return DualDemgradBatchResult(z, z.copy(), np.zeros(0, np.int32),
@@ -326,16 +394,16 @@ def solve_dual_demgrad_batch(caps, dems, *, n_valid=None, iters: int = 800,
 def solve_dual(cap: Topology | np.ndarray, dem: np.ndarray, *,
                iters: int = 800, lr: float = 0.08, tol: float = 0.0,
                check_every: int = 25, use_pallas: bool = False,
-               backend: str | None = None, d_max: int | None = None,
-               max_rounds: int | None = None,
+               backend: str | None = None,
+               d_max: int | None = None, max_rounds: int | None = None,
                device: str | torch.device = "cuda") -> DualResult:
     """Certified upper bound on max-concurrent-flow throughput of one
     instance (a batch of one; see ``solve_dual_batch``)."""
     cap_host = np.asarray(as_cap(cap), np.float32)
-    r = solve_dual_batch(cap_host[None], np.asarray(dem, np.float32)[None],
-                         iters=iters, lr=lr, tol=tol,
-                         check_every=check_every, use_pallas=use_pallas,
-                         backend=backend, d_max=d_max, max_rounds=max_rounds,
-                         device=device)
-    return DualResult(float(r.throughput_ub[0]), float(r.final_ratio[0]),
-                      int(r.iterations[0]))
+    best, final, it, _ = _descend_batch(
+        cap_host[None], np.asarray(dem, np.float32)[None], n_valid=None,
+        iters=iters, lr=lr, tol=tol, check_every=check_every,
+        use_pallas=use_pallas, backend=backend, d_max=d_max,
+        mean_degree=None, max_rounds=max_rounds, device=device,
+        demgrad=False, entry="solve")
+    return DualResult(float(best[0]), float(final[0]), int(it[0]))

@@ -15,15 +15,31 @@ bound beside them.
    with lanes that replicate its first instance), so ``compile_keys`` —
    the distinct ``(padded_n, lanes)`` shapes — keeps the reference's
    meaning: one shape per (bucket, chunk-shape).
-3. **Device** — the port runs on one card; ``devices`` accepts only 1.
-4. **Dispatch** — chunks run in order on the device's stream and results
-   stay on the device until every chunk has been queued; then the plan
-   copies them to the host once.  (The descent itself reads a convergence
-   flag once per check window, so chunks do not overlap on the card.)
+3. **Devices** — each chunk's lanes are split into ``devices`` equal
+   shards (its lane count is always a multiple of ``devices``; surplus
+   lanes replicate its first instance and are dropped on unpack).  On CUDA
+   shard ``j`` runs on ``cuda:j``, each card from a host thread of its own,
+   so a card never waits on another's convergence reads; on the CPU the
+   shards run one after another (the sharded path without cards).  A
+   lane's bits do not depend on its batch (lanes freeze by ``torch.where``;
+   sums run in orders fixed by N), so a sharded plan gives every lane the
+   bits of ``devices=1``.  Sharding is asked for by number: ``None`` is
+   one device (``device_count`` says why).
+4. **Dispatch** — results stay on the devices until every shard of every
+   chunk has been dispatched; then the plan copies them to the host once.
+   (The descent reads a convergence flag once per check window, so chunks
+   on one card do not overlap.)
+
+``compile_cache_sizes`` counts the programs each solver entry point has
+run, and the kernel library's builds and warm loads (``aot.compiles`` /
+``aot.hits``).
 """
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
+import time
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -31,9 +47,10 @@ import torch
 
 from repro_torch.core import mcf, primal, routing
 from repro_torch.core.graphs import Topology, as_cap, degree_stats
+from repro_torch.kernels import _build
 
-__all__ = ["bucket_size", "device_count", "Chunk", "PlanStats",
-           "InstanceSolve", "SOLVERS", "BatchPlan"]
+__all__ = ["bucket_size", "device_count", "compile_cache_sizes", "Chunk",
+           "PlanStats", "InstanceSolve", "SOLVERS", "BatchPlan"]
 
 
 def bucket_size(n: int, mode: str | int | None) -> int:
@@ -53,15 +70,27 @@ def bucket_size(n: int, mode: str | int | None) -> int:
                      "'mult128', a positive int, or None")
 
 
-def device_count(devices: int | None = None) -> int:
-    """Resolve a ``devices`` knob: the port drives one card, so ``None``
-    and 1 mean 1 and anything else raises."""
+def device_count(devices: int | None = None,
+                 device: str | torch.device = "cuda") -> int:
+    """Resolve a ``devices`` knob for ``device``.  ``None`` means one
+    device.  On CUDA an explicit ``k`` must lie in 1..
+    ``torch.cuda.device_count()``; on the CPU any ``k >= 1`` splits each
+    chunk into ``k`` shards run in turn.
+
+    The reference's ``None`` means every local device, where one launch
+    spans them all.  Here each shard launches a whole step's kernels from
+    a host thread of its own, and the descent is launch-bound: phase 3's
+    pile ran 9.9x slower on four cards than on one (PERF.md, ROADMAP P9).
+    So the port shards only when asked."""
     if devices is None:
         return 1
-    if devices != 1:
-        raise ValueError(f"devices={devices} out of range; the port runs "
-                         "on 1 device")
-    return 1
+    cuda = torch.device(device).type == "cuda"
+    avail = torch.cuda.device_count() if cuda else None
+    if devices < 1 or (cuda and devices > avail):
+        raise ValueError(f"devices={devices} out of range; "
+                         + (f"{avail} local device(s) available" if cuda
+                            else "the CPU takes any devices >= 1"))
+    return int(devices)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +100,7 @@ class Chunk:
     bucket: int                # bucket key the members were grouped under
     padded_n: int              # node-dim target (largest member in bucket)
     indices: tuple[int, ...]   # original instance positions (real lanes)
-    lanes: int                 # batch rows incl. padding
+    lanes: int                 # batch rows incl. padding (devices multiple)
 
     @property
     def pad_lanes(self) -> int:
@@ -88,7 +117,7 @@ class PlanStats:
     devices: int
     max_lanes: int | None
     lanes_total: int           # sum of chunk lane counts (incl. padding)
-    lanes_padded: int          # replicated lanes added for shape fit
+    lanes_padded: int          # replicated lanes added for shape/device fit
     compile_keys: tuple[tuple[int, int], ...]   # distinct (padded_n, lanes)
 
     def as_dict(self) -> dict[str, Any]:
@@ -147,6 +176,26 @@ SOLVERS = {"dual": _dispatch_dual, "primal": _dispatch_primal,
            "ksp": _dispatch_routing(routing.solve_ksp_batch)}
 
 
+def compile_cache_sizes() -> dict[str, int]:
+    """Program counts per (solver backend, entry point) — e.g.
+    ``{"dual.solve_batch": 3, "primal.solve_batch": 1, ...}``, the
+    reference's keys: the distinct (shapes, dtypes, static kwargs) keys
+    each entry point has run in this process (``mcf.compile_cache_sizes``
+    says why a count, not a compile).  Benchmarks report deltas of this to
+    show "one program per (bucket, chunk-shape)".  Also carries the port's
+    one compile, the kernel library's: ``aot.compiles`` counts its nvcc
+    builds in this process and ``aot.hits`` its loads that found it built
+    already (``kernels._build`` keeps it across processes, named by a hash
+    of its sources), so a warm process shows ``aot.compiles == 0``."""
+    out: dict[str, int] = {}
+    for name, mod in (("dual", mcf), ("primal", primal),
+                      ("routing", routing)):
+        for k, v in mod.compile_cache_sizes().items():
+            out[f"{name}.{k}"] = v
+    out["aot.compiles"], out["aot.hits"] = _build.build_counts()
+    return out
+
+
 class BatchPlan:
     """An executable plan over one pile of (topology, demand) instances."""
 
@@ -172,9 +221,15 @@ class BatchPlan:
               dems: Sequence[np.ndarray], *,
               bucket: str | int | None = "pow2",
               max_lanes: int | None = None,
-              devices: int | None = None) -> "BatchPlan":
-        """Plan ``len(topos)`` instances: bucket by padded size and chunk
-        each bucket under ``max_lanes`` rows per launch."""
+              devices: int | None = None,
+              device: str | torch.device = "cuda") -> "BatchPlan":
+        """Plan ``len(topos)`` instances: bucket by padded size, chunk each
+        bucket under ``max_lanes`` rows per launch, pad each chunk's batch
+        axis to a multiple of ``devices`` (``device_count(devices,
+        device)``).  Every launch spans all devices, so one lane per device
+        is the floor: a ``max_lanes`` below the device count (or not a
+        multiple of it) is rounded to the nearest feasible budget, never
+        exceeded beyond that floor."""
         if len(topos) != len(dems):
             raise ValueError(f"topos ({len(topos)}) and dems ({len(dems)}) "
                              "must have equal length")
@@ -182,7 +237,7 @@ class BatchPlan:
             raise ValueError(f"max_lanes must be >= 1, got {max_lanes}")
         caps = [np.asarray(as_cap(t), np.float32) for t in topos]
         demsl = [np.asarray(d, np.float32) for d in dems]
-        ndev = device_count(devices)
+        ndev = device_count(devices, device)
         by_bucket: dict[int, list[int]] = {}
         for i, c in enumerate(caps):
             by_bucket.setdefault(bucket_size(c.shape[0], bucket),
@@ -191,8 +246,13 @@ class BatchPlan:
         for bkt, idx in sorted(by_bucket.items()):
             # pad to the largest member, not the bucket ceiling
             size = max(caps[i].shape[0] for i in idx)
-            lanes = len(idx) if max_lanes is None else min(max_lanes,
-                                                           len(idx))
+            need = -(-len(idx) // ndev) * ndev   # device multiple that fits
+            if max_lanes is None:
+                lanes = need
+            else:
+                # floor the budget to a device multiple (never below one
+                # lane per device), and never pad a small bucket up to it
+                lanes = min(max(ndev, max_lanes // ndev * ndev), need)
             for lo in range(0, len(idx), lanes):
                 chunks.append(Chunk(bucket=bkt, padded_n=size,
                                     indices=tuple(idx[lo:lo + lanes]),
@@ -246,36 +306,93 @@ class BatchPlan:
             mean = max(mean, md)
         return {"d_max": max(1, d_max), "mean_degree": mean}
 
+    def _chunk_kw(self, chunk: Chunk, capp: np.ndarray, solver_kw: dict,
+                  want_hints: bool) -> dict:
+        """One chunk's solver knobs.  With no table stats given, the chunk
+        gets density hints from its unpadded members; with one of the two
+        given, the other is taken from the whole chunk, so every shard
+        resolves the backend as ``devices=1`` would."""
+        if want_hints:
+            return {**solver_kw, **self._density_hints(chunk)}
+        if (self.devices > 1
+                and solver_kw.get("backend") in (None, "auto", "ell-bf")
+                and not solver_kw.get("use_pallas")
+                and ("d_max" in solver_kw) != ("mean_degree" in solver_kw)):
+            d_max, mean = degree_stats(capp)
+            return {"d_max": d_max, "mean_degree": mean, **solver_kw}
+        return solver_kw
+
+    def _shard_devices(self, dev: torch.device) -> list[torch.device]:
+        """Where each shard runs: ``cuda:j`` for shard ``j`` of a plan over
+        several cards, ``dev`` itself on one device or on the CPU."""
+        if dev.type != "cuda":
+            return [dev] * self.devices
+        if self.devices == 1:
+            return [dev]
+        avail = torch.cuda.device_count()
+        if self.devices > avail:
+            raise ValueError(f"devices={self.devices} out of range; "
+                             f"{avail} local device(s) available")
+        return [torch.device("cuda", j) for j in range(self.devices)]
+
     def execute(self, solver: str = "dual", *,
                 device: str | torch.device = "cuda",
                 **solver_kw) -> list[InstanceSolve]:
-        """Run every chunk on ``device``, copy the results to the host
-        once, and scatter them back into input order.  ``solver`` names a
-        ``SOLVERS`` entry ("dual", "dual-demgrad": ``meta["dem_grad"]`` is
-        each lane's demand gradient, "primal", "ecmp" or "ksp").
-        ``solver_kw`` goes to the solver (iters/lr/tol/check_every/
-        use_pallas/backend/d_max/max_rounds, and hops/k/max_hops for the
-        routing solvers); where the backend can land on ``"ell-bf"`` and no
-        table stats were given, each chunk gets its own density hints."""
+        """Run every chunk's shards on their devices, copy the results to
+        the host once, and scatter them back into input order.  ``solver``
+        names a ``SOLVERS`` entry ("dual", "dual-demgrad":
+        ``meta["dem_grad"]`` is each lane's demand gradient, "primal",
+        "ecmp" or "ksp").  ``solver_kw`` goes to the solver (iters/lr/tol/
+        check_every/use_pallas/backend/d_max/max_rounds, and hops/k/
+        max_hops for the routing solvers).  Where the backend can
+        land on ``"ell-bf"`` and no table stats were given, each chunk gets
+        its own density hints.  ``last_shard_seconds`` keeps each shard's
+        wall (on a card, to its device's end)."""
         try:
             dispatch = SOLVERS[solver]
         except KeyError:
             raise ValueError(f"unknown plan solver {solver!r}; "
                              f"known: {sorted(SOLVERS)}") from None
-        dev = mcf.resolve_device(device)
+        shards = self._shard_devices(mcf.resolve_device(device))
         want_hints = (solver_kw.get("backend") in (None, "auto", "ell-bf")
                       and not solver_kw.get("use_pallas")
                       and "d_max" not in solver_kw
                       and "mean_degree" not in solver_kw)
-        pending = []
+        jobs = []
         for chunk in self.chunks:
             capp, demp, n_valid = self._pack(chunk)
-            kw = ({**solver_kw, **self._density_hints(chunk)}
-                  if want_hints else solver_kw)
-            pending.append(dispatch(capp, demp, n_valid,
-                                    {**kw, "device": dev}))
-        # ONE host copy for the whole plan
-        host = [{k: v.cpu().numpy() for k, v in r.items()} for r in pending]
+            jobs.append((capp, demp, n_valid,
+                         self._chunk_kw(chunk, capp, solver_kw, want_hints)))
+        t0 = time.perf_counter()
+
+        def run_shard(j: int):
+            dev = shards[j]
+            on_card = dev.type == "cuda" and self.devices > 1
+            scope = (torch.cuda.device(dev) if on_card
+                     else contextlib.nullcontext())
+            with scope:
+                out = []
+                for capp, demp, n_valid, kw in jobs:
+                    w = capp.shape[0] // self.devices
+                    rows = slice(j * w, (j + 1) * w)
+                    out.append(dispatch(capp[rows], demp[rows],
+                                        n_valid[rows], {**kw, "device": dev}))
+                if on_card:
+                    torch.cuda.synchronize(dev)
+            return out, time.perf_counter() - t0
+
+        if len(shards) > 1 and shards[0].type == "cuda":
+            # one host thread a card: no card waits on another's flag reads
+            with concurrent.futures.ThreadPoolExecutor(len(shards)) as pool:
+                done = list(pool.map(run_shard, range(len(shards))))
+        else:
+            done = [run_shard(j) for j in range(len(shards))]
+        self.last_shard_seconds = tuple(s for _, s in done)
+        # ONE host copy for the whole plan, shards joined along the lanes
+        host = [{k: np.concatenate([done[j][0][ci][k].cpu().numpy()
+                                    for j in range(len(shards))])
+                 for k in done[0][0][ci]}
+                for ci in range(len(self.chunks))]
         stats = self.stats.as_dict()
         out: list[InstanceSolve | None] = [None] * len(self.caps)
         for ci, (chunk, arrs) in enumerate(zip(self.chunks, host)):

@@ -55,11 +55,22 @@ import torch
 from repro_torch.core import apsp as apsp_mod
 from repro_torch.core.apsp import _INF, _sum_sources, normalize_backend
 from repro_torch.core.graphs import Topology, as_cap
-from repro_torch.core.mcf import resolve_backend_density
+from repro_torch.core.mcf import (jit_cache_size, resolve_backend_density,
+                                  run_program)
 from repro_torch.device import resolve_device
 
 __all__ = ["PrimalResult", "PrimalBatchResult", "solve_primal",
-           "solve_primal_batch"]
+           "solve_primal_batch", "compile_cache_sizes"]
+
+# the distinct program keys each entry point has run in this process
+_PROGRAMS: dict[str, set] = {"solve": set(), "solve_batch": set()}
+
+
+def compile_cache_sizes() -> dict[str, int]:
+    """Programs per primal entry point: the distinct (shapes, dtypes,
+    static kwargs) keys each has run in this process (as
+    ``mcf.compile_cache_sizes``)."""
+    return {k: jit_cache_size(v) for k, v in _PROGRAMS.items()}
 
 _LS_STEPS = 24   # ternary-search rounds: (2/3)^24 ~ 6e-5 gamma resolution
 
@@ -140,7 +151,7 @@ def _line_search(u_cur: torch.Tensor, u_sp: torch.Tensor) -> torch.Tensor:
     return (lo + hi) / 2
 
 
-def _primal_descend(caps, dems, n_valid, *, iters, lr, tol, check_every,
+def _primal_descend(caps, dems, n_valid, lr, tol, *, iters, check_every,
                     backend, d_max, max_rounds):
     """Masked FW + dual descent over a batch of (possibly padded)
     instances.  Returns (best lb, best ub, final max utilisation,
@@ -238,6 +249,34 @@ def _primal_descend(caps, dems, n_valid, *, iters, lr, tol, check_every,
     return best_lb, best_ub, final_util, it
 
 
+def _primal_batch(entry, caps, dems, *, n_valid, iters, lr, tol,
+                  check_every, use_pallas, backend, d_max, mean_degree,
+                  max_rounds, device):
+    """Host half of a batched primal solve, run as ``entry``'s program."""
+    dev = resolve_device(device)
+    backend = normalize_backend(backend, use_pallas)
+    if len(caps) != len(dems):
+        raise ValueError(f"caps ({len(caps)}) and dems ({len(dems)}) "
+                         "must have equal length")
+    if len(caps) == 0:
+        return None
+    if not isinstance(caps, np.ndarray):
+        caps = np.stack([as_cap(c) for c in caps])
+    if not isinstance(dems, np.ndarray):
+        dems = np.stack([np.asarray(d) for d in dems])
+    if n_valid is None:
+        n_valid = np.full(caps.shape[0], caps.shape[1], np.int32)
+    backend, d_max = resolve_backend_density(
+        backend, caps, n=caps.shape[1], d_max=d_max, mean_degree=mean_degree)
+    args = (torch.as_tensor(caps, dtype=torch.float32, device=dev),
+            torch.as_tensor(dems, dtype=torch.float32, device=dev),
+            torch.as_tensor(np.asarray(n_valid), dtype=torch.int32,
+                            device=dev), lr, tol)
+    static_kw = dict(iters=iters, check_every=check_every, backend=backend,
+                     d_max=d_max, max_rounds=max_rounds)
+    return run_program(_PROGRAMS, entry, _primal_descend, args, static_kw)
+
+
 def solve_primal_batch(caps, dems, *, n_valid=None, iters: int = 800,
                        lr: float = 0.08, tol: float = 0.0,
                        check_every: int = 25, use_pallas: bool = False,
@@ -252,29 +291,16 @@ def solve_primal_batch(caps, dems, *, n_valid=None, iters: int = 800,
     so primal lanes ride the same buckets and chunks.  ``tol > 0`` stops a
     lane once its bracket gap shrank by less than ``tol`` over a
     ``check_every``-step window."""
-    dev = resolve_device(device)
-    backend = normalize_backend(backend, use_pallas)
-    if len(caps) != len(dems):
-        raise ValueError(f"caps ({len(caps)}) and dems ({len(dems)}) "
-                         "must have equal length")
-    if len(caps) == 0:
+    out = _primal_batch("solve_batch", caps, dems, n_valid=n_valid,
+                        iters=iters, lr=lr, tol=tol, check_every=check_every,
+                        use_pallas=use_pallas, backend=backend, d_max=d_max,
+                        mean_degree=mean_degree, max_rounds=max_rounds,
+                        device=device)
+    if out is None:
         z = np.zeros(0, np.float32)
         return PrimalBatchResult(z, z.copy(), z.copy(),
                                  np.zeros(0, np.int32))
-    if not isinstance(caps, np.ndarray):
-        caps = np.stack([as_cap(c) for c in caps])
-    if not isinstance(dems, np.ndarray):
-        dems = np.stack([np.asarray(d) for d in dems])
-    if n_valid is None:
-        n_valid = np.full(caps.shape[0], caps.shape[1], np.int32)
-    backend, d_max = resolve_backend_density(
-        backend, caps, n=caps.shape[1], d_max=d_max, mean_degree=mean_degree)
-    lb, ub, util, it = _primal_descend(
-        torch.as_tensor(caps, dtype=torch.float32, device=dev),
-        torch.as_tensor(dems, dtype=torch.float32, device=dev),
-        torch.as_tensor(np.asarray(n_valid), dtype=torch.int32, device=dev),
-        iters=iters, lr=lr, tol=tol, check_every=check_every,
-        backend=backend, d_max=d_max, max_rounds=max_rounds)
+    lb, ub, util, it = out
     if not block:
         return PrimalBatchResult(lb, ub, util, it)
     return PrimalBatchResult(lb.cpu().numpy(), ub.cpu().numpy(),
@@ -293,10 +319,10 @@ def solve_primal(cap: Topology | np.ndarray, dem: np.ndarray, *,
     ``cap``: a ``Topology`` or symmetric [N, N] capacity matrix; ``dem``:
     [N, N] demand, both in base line-speed units."""
     cap_host = np.asarray(as_cap(cap), np.float32)
-    r = solve_primal_batch(cap_host[None], np.asarray(dem, np.float32)[None],
-                           iters=iters, lr=lr, tol=tol,
-                           check_every=check_every, use_pallas=use_pallas,
-                           backend=backend, d_max=d_max,
-                           max_rounds=max_rounds, device=device)
-    return PrimalResult(float(r.throughput_lb[0]), float(r.throughput_ub[0]),
-                        float(r.final_util[0]), int(r.iterations[0]))
+    lb, ub, util, it = _primal_batch(
+        "solve", cap_host[None], np.asarray(dem, np.float32)[None],
+        n_valid=None, iters=iters, lr=lr, tol=tol, check_every=check_every,
+        use_pallas=use_pallas, backend=backend, d_max=d_max,
+        mean_degree=None, max_rounds=max_rounds, device=device)
+    return PrimalResult(float(lb[0]), float(ub[0]), float(util[0]),
+                        int(it[0]))

@@ -75,7 +75,19 @@ from repro_torch.kernels import paths as kpaths
 
 __all__ = ["RoutingResult", "RoutingBatchResult", "solve_ecmp",
            "solve_ecmp_batch", "solve_ksp", "solve_ksp_batch",
-           "path_lp_throughput", "DEFAULT_K", "DEFAULT_MAX_HOPS"]
+           "path_lp_throughput", "compile_cache_sizes", "DEFAULT_K",
+           "DEFAULT_MAX_HOPS"]
+
+# the distinct program keys each entry point has run in this process
+_PROGRAMS: dict[str, set] = {"ecmp": set(), "ecmp_batch": set(),
+                             "ksp": set(), "ksp_batch": set()}
+
+
+def compile_cache_sizes() -> dict[str, int]:
+    """Programs per routing entry point: the distinct (shapes, dtypes,
+    static kwargs) keys each has run in this process (as
+    ``mcf.compile_cache_sizes``)."""
+    return {k: mcf.jit_cache_size(v) for k, v in _PROGRAMS.items()}
 
 DEFAULT_K = 8          # path-set width: Jellyfish's evaluation sweet spot
 DEFAULT_MAX_HOPS = 12  # per-path hop budget for the static path tensor
@@ -250,13 +262,13 @@ def _ideal_ub(caps, dems, n_valid, *, iters, lr, tol, check_every, backend,
     return ub, it
 
 
-def _ecmp_batch(caps, dems, n_valid, *, hops, **kw):
+def _ecmp_batch(caps, dems, n_valid, lr, tol, *, hops, **kw):
     dem, edge_mask, safe_cap = _masked(caps, dems, n_valid)
     with torch.no_grad():
         lb, util, ran = _ecmp_eval(dem, edge_mask, safe_cap,
                                    backend=kw["backend"], d_max=kw["d_max"],
                                    max_rounds=kw["max_rounds"], hops=hops)
-    ub, it = _ideal_ub(caps, dems, n_valid, **kw)
+    ub, it = _ideal_ub(caps, dems, n_valid, lr=lr, tol=tol, **kw)
     return lb, ub, util, it, torch.full_like(it, ran)
 
 
@@ -441,11 +453,11 @@ def _mw_descend(tables, demv, emask, scap, *, iters, lr, tol, check_every):
     return torch.maximum(best, _lb_of(final)), final, it
 
 
-def _ksp_batch(caps, dems, n_valid, paths, *, hops, **kw):
+def _ksp_batch(caps, dems, n_valid, paths, lr, tol, *, hops, **kw):
     """The ECMP program (its bound is KSP's floor), then MW over the
     lanes' path tables."""
-    ecmp_lb, ub, _, _, ran = _ecmp_batch(caps, dems, n_valid, hops=hops,
-                                         **kw)
+    ecmp_lb, ub, _, _, ran = _ecmp_batch(caps, dems, n_valid, lr, tol,
+                                         hops=hops, **kw)
     bsz, nmax, _ = caps.shape
     dem, edge_mask, safe_cap = _masked(caps, dems, n_valid)
     with torch.no_grad():
@@ -454,8 +466,8 @@ def _ksp_batch(caps, dems, n_valid, paths, *, hops, **kw):
         routable = ~((demv > 0) & ~tables.valid.any(2)).any(1)
         best, final, it = _mw_descend(
             tables, demv, edge_mask.reshape(bsz, -1),
-            safe_cap.reshape(bsz, -1), iters=kw["iters"], lr=kw["lr"],
-            tol=kw["tol"], check_every=kw["check_every"])
+            safe_cap.reshape(bsz, -1), iters=kw["iters"], lr=lr, tol=tol,
+            check_every=kw["check_every"])
         lb = torch.maximum(torch.where(routable, best, 0.0), ecmp_lb)
     return lb, ub, final, it, ran
 
@@ -496,8 +508,11 @@ def _empty_batch() -> RoutingBatchResult:
     return RoutingBatchResult(z, z.copy(), z.copy(), i, i.copy())
 
 
-def _run(solver, caps, dems, n_valid, *, device, block, hops, use_pallas,
-         backend, d_max, mean_degree, extra=None, **kw):
+def _run(entry, caps, dems, n_valid, *, device, block, hops, use_pallas,
+         backend, d_max, mean_degree, lr, tol, k=None, max_hops=None,
+         **kw):
+    """Host half of a routing solve, run as ``entry``'s program ("ecmp*"
+    or "ksp*": the KSP program also takes the lanes' path tensor)."""
     dev = resolve_device(device)
     if len(caps) != len(dems):
         raise ValueError(f"caps ({len(caps)}) and dems ({len(dems)}) "
@@ -509,10 +524,15 @@ def _run(solver, caps, dems, n_valid, *, device, block, hops, use_pallas,
     args = [torch.as_tensor(caps, dtype=torch.float32, device=dev),
             torch.as_tensor(dems, dtype=torch.float32, device=dev),
             torch.as_tensor(n_valid, dtype=torch.int32, device=dev)]
-    if extra is not None:
-        args.append(extra(caps, n_valid))
-    out = solver(*args, hops=_resolve_hops(caps.shape[1], hops),
-                 backend=backend, d_max=d_max, **kw)
+    solver = _ecmp_batch
+    if entry.startswith("ksp"):
+        solver = _ksp_batch
+        args.append(_paths_tensor(caps, n_valid, k, _resolve_max_hops(
+            caps.shape[1], max_hops)))
+    static_kw = dict(hops=_resolve_hops(caps.shape[1], hops),
+                     backend=backend, d_max=d_max, **kw)
+    out = mcf.run_program(_PROGRAMS, entry, solver, (*args, lr, tol),
+                          static_kw)
     if not block:
         return RoutingBatchResult(*out)
     return RoutingBatchResult(*(x.cpu().numpy() for x in out))
@@ -526,17 +546,19 @@ def solve_ecmp_batch(caps, dems, *, n_valid=None, iters: int = 800,
                      mean_degree: float | None = None,
                      max_rounds: int | None = None,
                      hops: int | None = None,
-                     device: str | torch.device = "cuda"
-                     ) -> RoutingBatchResult:
+                     device: str | torch.device = "cuda",
+                     _entry: str = "ecmp_batch") -> RoutingBatchResult:
     """Batched ECMP solve over stacked [R, N, N] topologies/demands; the
     call surface mirrors ``mcf.solve_dual_batch`` (``n_valid`` padding
     masks, ``block=False`` for ``BatchPlan``).  ``hops`` caps the
     propagation depth (default N, always enough); the descent knobs only
-    steer the free upper bound."""
-    return _run(_ecmp_batch, caps, dems, n_valid, device=device,
-                block=block, hops=hops, use_pallas=use_pallas,
-                backend=backend, d_max=d_max, mean_degree=mean_degree,
-                iters=iters, lr=lr, tol=tol, check_every=check_every,
+    steer the free upper bound.
+    ``_entry`` names the counted entry point (``solve_ecmp`` counts as
+    ``"ecmp"``)."""
+    return _run(_entry, caps, dems, n_valid, device=device, block=block,
+                hops=hops, use_pallas=use_pallas, backend=backend,
+                d_max=d_max, mean_degree=mean_degree, lr=lr, tol=tol,
+                iters=iters, check_every=check_every,
                 max_rounds=max_rounds)
 
 
@@ -549,26 +571,23 @@ def solve_ksp_batch(caps, dems, *, n_valid=None, k: int = DEFAULT_K,
                     mean_degree: float | None = None,
                     max_rounds: int | None = None,
                     hops: int | None = None,
-                    device: str | torch.device = "cuda"
-                    ) -> RoutingBatchResult:
+                    device: str | torch.device = "cuda",
+                    _entry: str = "ksp_batch") -> RoutingBatchResult:
     """Batched KSP solve; surface = ``solve_ecmp_batch`` plus ``k`` (paths
     per pair) and ``max_hops`` (per-path hop budget, default min(N - 1,
     DEFAULT_MAX_HOPS), resolved from the padded width).  Path tensors are
     enumerated on the host per lane (deduped across identical lanes)."""
-    def paths_of(caps_np, n_valid_np):
-        return _paths_tensor(caps_np, n_valid_np, k,
-                             _resolve_max_hops(caps_np.shape[1], max_hops))
-
-    return _run(_ksp_batch, caps, dems, n_valid, device=device,
-                block=block, hops=hops, use_pallas=use_pallas,
-                backend=backend, d_max=d_max, mean_degree=mean_degree,
-                extra=paths_of, iters=iters, lr=lr, tol=tol,
+    return _run(_entry, caps, dems, n_valid, device=device, block=block,
+                hops=hops, use_pallas=use_pallas, backend=backend,
+                d_max=d_max, mean_degree=mean_degree, lr=lr, tol=tol,
+                k=k, max_hops=max_hops, iters=iters,
                 check_every=check_every, max_rounds=max_rounds)
 
 
-def _single(batch_fn, cap, dem, **kw) -> RoutingResult:
+def _single(batch_fn, entry, cap, dem, **kw) -> RoutingResult:
     cap_host = np.asarray(as_cap(cap), np.float32)
-    r = batch_fn(cap_host[None], np.asarray(dem, np.float32)[None], **kw)
+    r = batch_fn(cap_host[None], np.asarray(dem, np.float32)[None],
+                 _entry=entry, **kw)
     return RoutingResult(float(r.throughput_lb[0]), float(r.throughput_ub[0]),
                          float(r.final_util[0]), int(r.iterations[0]))
 
@@ -577,7 +596,7 @@ def solve_ecmp(cap: Topology | np.ndarray, dem: np.ndarray, **kw
                ) -> RoutingResult:
     """Certified ECMP lower bound for one instance, with the ideal dual
     upper bound (a batch of one; knobs as ``solve_ecmp_batch``)."""
-    return _single(solve_ecmp_batch, cap, dem, **kw)
+    return _single(solve_ecmp_batch, "ecmp", cap, dem, **kw)
 
 
 def solve_ksp(cap: Topology | np.ndarray, dem: np.ndarray, **kw
@@ -585,7 +604,7 @@ def solve_ksp(cap: Topology | np.ndarray, dem: np.ndarray, **kw
     """Certified k-shortest-path lower bound for one instance: MW over the
     k-path set, floored by ECMP, with the ideal dual upper bound (a batch
     of one; knobs as ``solve_ksp_batch``)."""
-    return _single(solve_ksp_batch, cap, dem, **kw)
+    return _single(solve_ksp_batch, "ksp", cap, dem, **kw)
 
 
 def path_lp_throughput(cap: Topology | np.ndarray, dem: np.ndarray,

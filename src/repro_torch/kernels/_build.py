@@ -31,13 +31,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 import time
 
 import torch
 
-__all__ = ["load", "check", "stream_ptr", "LAUNCHES", "SITE_LAUNCHES",
-           "reset_launches",
-           "BUILD_DIR", "SOURCES", "build_seconds", "build_log"]
+__all__ = ["load", "library_path", "check", "stream_ptr", "LAUNCHES",
+           "SITE_LAUNCHES", "reset_launches",
+           "BUILD_DIR", "SOURCES", "build_seconds", "build_counts",
+           "build_log"]
 
 _CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = tuple(sorted(_CSRC.glob("*.cu")))
@@ -75,6 +77,7 @@ LAUNCHES: dict[str, int] = dict.fromkeys(
      "wkv_chunked", "flash_attention_bwd", "wkv_chunked_bwd"), 0)
 SITE_LAUNCHES: collections.Counter[str] = collections.Counter()
 _BUILD_SECONDS: list[float] = []
+_FOUND: list[pathlib.Path] = []   # libraries loaded without a build
 
 
 def reset_launches() -> None:
@@ -87,6 +90,12 @@ def build_seconds() -> float | None:
     """Wall seconds the build took in this process (None if it loaded a
     library that was already built, or has not loaded yet)."""
     return _BUILD_SECONDS[-1] if _BUILD_SECONDS else None
+
+
+def build_counts() -> tuple[int, int]:
+    """(nvcc builds, loads of a library that was already built) in this
+    process: ``load`` does one or the other, once."""
+    return len(_BUILD_SECONDS), len(_FOUND)
 
 
 def _nvcc() -> str:
@@ -143,14 +152,27 @@ def _build(target: pathlib.Path) -> None:
     _BUILD_SECONDS.append(time.perf_counter() - t0)
 
 
+def library_path() -> pathlib.Path:
+    """Where ``load`` finds (or builds) the library of the current sources."""
+    return BUILD_DIR / f"librepro_torch_{_digest()}.so"
+
+
+_LOAD_LOCK = threading.Lock()
+
+
 @functools.lru_cache(maxsize=None)
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library.  Host
+    threads that reach it together (a plan's shards, one a card) build it
+    once: the object files are named by process, not by thread."""
     if not SOURCES:
         raise RuntimeError(f"no CUDA sources under {_CSRC}")
-    target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
-    if not target.exists():
-        _build(target)
+    target = library_path()
+    with _LOAD_LOCK:
+        if target.exists():
+            _FOUND.append(target)
+        else:
+            _build(target)
     lib = ctypes.CDLL(str(target))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

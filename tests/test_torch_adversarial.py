@@ -169,7 +169,13 @@ def test_dem_grad_is_minus_dist_over_alpha():
     w = torch.where((c > 0) & pair, 1.0, p_mcf._INF)
     w = torch.where(eye, 0.0, w)
     dist = torch.where(pair, p_apsp.apsp(w, "squaring"), 0.0)
-    alpha = (torch.where(pair, d, 0.0) * dist).sum(dim=(1, 2))
+    # α summed as the descent sums it: pairwise halving fixed by N
+    terms = torch.where(pair, d, 0.0) * dist
+    alpha = p_apsp._sum_sources(terms.reshape(len(nv), 16 * 16))
+    # and, from a source independent of the halving, the same α in float64
+    np.testing.assert_allclose(alpha.double().numpy(),
+                               terms.double().sum(dim=(1, 2)).numpy(),
+                               rtol=1e-6)
     assert np.array_equal(got.dem_grad,
                           (-dist / alpha[:, None, None]).numpy())
     # after a descent: Σ dem·g = −α/α = −1 on every lane

@@ -956,3 +956,112 @@ def test_cuda_wkv_gradients_reach_r_k_v_log_w(cuda):
     for a, b in zip(ins, plain):
         assert a.grad is not None and float(a.grad.abs().max()) > 0
         _close_grad(a.grad, b.grad, torch.float32)
+
+
+# --------------------------------------------------------------------------
+# the planner's device placement and compile cache on the card
+# --------------------------------------------------------------------------
+
+def _plan_pile(ns, deg=4, servers=3):
+    from repro_torch.core import graphs, traffic
+    topos = [graphs.random_regular_graph(n, deg, seed=s, servers=servers)
+             for s, n in enumerate(ns)]
+    return topos, [traffic.make("permutation", t.servers, seed=s + 1)
+                   for s, t in enumerate(topos)]
+
+
+@pytest.mark.cuda
+def test_cuda_devices_none_is_one_card(cuda):
+    from repro_torch.core import get_engine
+    from repro_torch.core.plan import device_count
+    ncards = torch.cuda.device_count()
+    assert device_count(None) == 1
+    assert device_count(ncards) == ncards
+    with pytest.raises(ValueError, match="out of range"):
+        device_count(ncards + 1)
+    eng = get_engine("dual", iters=20)
+    res = eng.solve_batch(*_plan_pile([16, 16, 24]))
+    assert eng.last_plan.devices == 1
+    assert all(r.meta["devices"] == 1 for r in res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["dual", "certified", "ecmp", "ksp"])
+def test_cuda_sharded_plan_bit_identical_to_one_card(cuda, solver):
+    """Shard j on cuda:j, one host thread a card: every lane's bits equal a
+    one-card plan's (needs two cards or more)."""
+    from repro_torch.core import get_engine
+    ncards = torch.cuda.device_count()
+    if ncards < 2:
+        pytest.skip("needs two cards or more")
+    topos, dems = _plan_pile([16, 16, 24, 24, 32])
+    one = get_engine(solver, iters=60, devices=1).solve_batch(topos, dems)
+    eng = get_engine(solver, iters=60, devices=ncards)
+    many = eng.solve_batch(topos, dems)
+    assert [r.throughput for r in one] == [r.throughput for r in many]
+    assert eng.last_plan.devices == ncards
+
+
+@pytest.mark.cuda
+def test_cuda_warm_process_builds_no_library(cuda):
+    """The kernel library is the port's one compile: a second process on
+    the same sources loads it without nvcc (``aot.compiles`` 0, ``aot.hits``
+    1) and gives the same bits; a refill adds no program."""
+    import json as _json
+    import pathlib
+    import subprocess
+    import sys
+    from repro_torch.core import get_engine
+    from repro_torch.core.plan import compile_cache_sizes
+    topos, dems = _plan_pile([64] * 4)
+    eng = get_engine("dual-pallas", iters=30, devices=1)
+    before = _build.LAUNCHES["minplus_acc"]
+    first = [r.throughput for r in eng.solve_batch(topos, dems)]
+    assert _build.LAUNCHES["minplus_acc"] > before
+    assert sum(compile_cache_sizes()[k] for k in ("aot.compiles",
+                                                  "aot.hits")) == 1
+    src = pathlib.Path(__file__).resolve().parents[1] / "src"
+    code = (
+        "import json, sys; sys.path.insert(0, %r)\n"
+        "from repro_torch.core import get_engine, graphs, traffic\n"
+        "from repro_torch.core.plan import compile_cache_sizes\n"
+        "from repro_torch.kernels import _build\n"
+        "ts = [graphs.random_regular_graph(64, 4, seed=s, servers=3)"
+        " for s in range(4)]\n"
+        "ds = [traffic.make('permutation', t.servers, seed=s + 1)"
+        " for s, t in enumerate(ts)]\n"
+        "res = get_engine('dual-pallas', iters=30, devices=1)"
+        ".solve_batch(ts, ds)\n"
+        "print(json.dumps({'sizes': compile_cache_sizes(), 'nvcc':"
+        " _build.build_seconds(), 'bounds': [r.throughput for r in res]}))"
+        % str(src))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=300)
+    warm = _json.loads(out.stdout.strip().splitlines()[-1])
+    assert warm["nvcc"] is None
+    assert (warm["sizes"]["aot.compiles"], warm["sizes"]["aot.hits"]) == \
+        (0, 1)
+    assert warm["bounds"] == first
+    plan = eng.plan(topos, dems)
+    c0 = compile_cache_sizes()
+    plan.refill(*_plan_pile([64] * 4, deg=5)).execute(
+        iters=30, backend="squaring-pallas")
+    c1 = compile_cache_sizes()
+    assert all(c1[k] == c0[k] for k in c1 if k.startswith("dual."))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["squaring", "ell-bf"])
+def test_cuda_chunks_do_not_change_a_lane(cuda, backend):
+    """The reference's plan contract on the card: chunking a bucket (and so
+    sharding it) must not change any bound bit.  A CUDA reduction's order
+    depends on the number of lanes, so the dual ratio's sums run in an
+    order fixed by N (``apsp._sum_sources``)."""
+    from repro_torch.core import get_engine
+    topos, dems = _plan_pile([128] * 6, deg=8)
+    kw = dict(iters=60, backend=backend, devices=1)
+    whole = get_engine("dual", **kw).solve_batch(topos, dems)
+    chunked = get_engine("dual", max_lanes=2, **kw).solve_batch(topos, dems)
+    assert [r.throughput for r in whole] == [r.throughput for r in chunked]
+    assert [r.meta["final_ratio"] for r in whole] == \
+        [r.meta["final_ratio"] for r in chunked]
