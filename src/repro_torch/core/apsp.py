@@ -48,6 +48,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import ell as kell
 from repro_torch.kernels import fw as kfw
 from repro_torch.kernels import minplus as kmin
@@ -189,6 +190,16 @@ def _sum_sources(x: torch.Tensor) -> torch.Tensor:
     return _halving_sum(x)
 
 
+_READ = "repro_torch.apsp.backward.read"
+
+
+def _mass_left(u: torch.Tensor) -> bool:
+    """The backward's host read a sweep: is any cotangent still off the
+    diagonal."""
+    with obs.span(_READ):
+        return bool(u.abs().max() > 0.0)
+
+
 def _sp_dag_grad(w: torch.Tensor, d: torch.Tensor,
                  g: torch.Tensor) -> torch.Tensor:
     """Backward of the closure of ``w`` [B, N, N]: route the cotangent
@@ -201,7 +212,8 @@ def _sp_dag_grad(w: torch.Tensor, d: torch.Tensor,
     wf = w.to(torch.float32)
     df = d.to(torch.float32)
     fin = (wf < _INF / 2) & ~eye                        # fin[b, k, t]: edge k -> t
-    degs = torch.stack([fin.sum(1).max(), fin.sum(2).max()]).tolist()
+    with obs.span(_READ):
+        degs = torch.stack([fin.sum(1).max(), fin.sum(2).max()]).tolist()
     d_in, d_out = max(1, int(degs[0])), max(1, int(degs[1]))
     idx, wgt = _pack_ell(wf, d_in)                      # predecessors of t
     valid = wgt < _INF / 2
@@ -216,8 +228,11 @@ def _sp_dag_grad(w: torch.Tensor, d: torch.Tensor,
     u = torch.where((df < _INF / 2) & ~eye, g.to(torch.float32), 0.0)
     dw_ell = torch.zeros((bsz, n, d_in), dtype=torch.float32, device=dev)
     c = max(1, min(n, _BWD_ELEMS // max(1, bsz * n * d_in)))
-    it = 0
-    while it < n and bool(u.abs().max() > 0.0):
+    it, reads = 0, 1                                    # reads: the widths
+    while it < n:
+        reads += 1
+        if not _mass_left(u):
+            break
         un = torch.zeros_like(u)
         for t0 in range(0, n, c):
             t1 = min(n, t0 + c)
@@ -252,16 +267,20 @@ def _sp_dag_grad(w: torch.Tensor, d: torch.Tensor,
     # edge (k = idx[t, j], t) exactly once; pads write 0 to the diagonal
     dwt = torch.zeros((bsz, n, n), dtype=torch.float32, device=dev)
     dwt.scatter_(2, idx_l, torch.where(valid, dw_ell, 0.0))
+    obs.count("sp_dag.backwards")
+    obs.count("sp_dag.hops", it)
+    obs.count("sp_dag.host_reads", reads)
     return dwt.transpose(1, 2).to(w.dtype)
 
 
 class _Apsp(torch.autograd.Function):
-    # the record_function ranges name the two halves of a descent step in
-    # a torch.profiler trace (chip_smoke.py reads their device time); they
-    # cost nothing while no profiler runs
+    # the two spans are profiler ranges too: they name the two halves of a
+    # descent step in a torch.profiler trace (chip_smoke.py and the
+    # benchmark read their device time); off, they cost what the ranges
+    # cost while no profiler runs
     @staticmethod
     def forward(ctx, w, backend, d_max, max_rounds):
-        with torch.profiler.record_function("repro_torch.apsp.forward"):
+        with obs.span("repro_torch.apsp.forward", profiler=True):
             d = _apsp_forward(w, backend, d_max, max_rounds)
         ctx.save_for_backward(w, d)
         return d
@@ -269,7 +288,7 @@ class _Apsp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w, d = ctx.saved_tensors
-        with torch.profiler.record_function("repro_torch.apsp.backward"):
+        with obs.span("repro_torch.apsp.backward", profiler=True):
             return _sp_dag_grad(w, d, g), None, None, None
 
 

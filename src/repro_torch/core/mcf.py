@@ -43,6 +43,7 @@ from typing import Any, Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import apsp as apsp_mod
 from repro_torch.core.apsp import _INF, _sum_sources, normalize_backend
 from repro_torch.core.graphs import (Topology, as_cap, connected_components,
@@ -245,6 +246,12 @@ def _dual_ratio(z, cap, dem, edge_mask, pair_mask, eye, backend, d_max,
             alpha)
 
 
+def all_done(done: torch.Tensor) -> bool:
+    """A descent's host read a check window: has every lane stopped."""
+    with obs.span("repro_torch.descent.check"):
+        return bool(done.all())
+
+
 def _descend(caps, dems, n_valid, lr, tol, *, iters, check_every, backend,
              d_max, max_rounds, demgrad=False):
     """Masked Adam descent over a batch of (possibly padded) instances.
@@ -273,7 +280,7 @@ def _descend(caps, dems, n_valid, lr, tol, *, iters, check_every, backend,
     it = torch.zeros(bsz, dtype=torch.int32, device=dev)
     b1, b2 = torch.tensor(0.9, **f32), torch.tensor(0.999, **f32)
     for i in range(iters):
-        if i and i % check_every == 0 and bool(done.all()):
+        if i and i % check_every == 0 and all_done(done):
             break
         zg = z.detach().requires_grad_(True)
         loss, ratio, _, _ = ratio_of(zg)

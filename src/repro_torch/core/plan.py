@@ -39,7 +39,6 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
-import time
 from typing import Any, Mapping, Sequence
 
 import numpy as np
@@ -346,8 +345,7 @@ class BatchPlan:
         check_every/use_pallas/backend/d_max/max_rounds, and hops/k/
         max_hops for the routing solvers).  Where the backend can
         land on ``"ell-bf"`` and no table stats were given, each chunk gets
-        its own density hints.  ``last_shard_seconds`` keeps each shard's
-        wall (on a card, to its device's end)."""
+        its own density hints."""
         try:
             dispatch = SOLVERS[solver]
         except KeyError:
@@ -363,7 +361,6 @@ class BatchPlan:
             capp, demp, n_valid = self._pack(chunk)
             jobs.append((capp, demp, n_valid,
                          self._chunk_kw(chunk, capp, solver_kw, want_hints)))
-        t0 = time.perf_counter()
 
         def run_shard(j: int):
             dev = shards[j]
@@ -379,7 +376,7 @@ class BatchPlan:
                                         n_valid[rows], {**kw, "device": dev}))
                 if on_card:
                     torch.cuda.synchronize(dev)
-            return out, time.perf_counter() - t0
+            return out
 
         if len(shards) > 1 and shards[0].type == "cuda":
             # one host thread a card: no card waits on another's flag reads
@@ -387,11 +384,10 @@ class BatchPlan:
                 done = list(pool.map(run_shard, range(len(shards))))
         else:
             done = [run_shard(j) for j in range(len(shards))]
-        self.last_shard_seconds = tuple(s for _, s in done)
         # ONE host copy for the whole plan, shards joined along the lanes
-        host = [{k: np.concatenate([done[j][0][ci][k].cpu().numpy()
+        host = [{k: np.concatenate([done[j][ci][k].cpu().numpy()
                                     for j in range(len(shards))])
-                 for k in done[0][0][ci]}
+                 for k in done[0][ci]}
                 for ci in range(len(self.chunks))]
         stats = self.stats.as_dict()
         out: list[InstanceSolve | None] = [None] * len(self.caps)

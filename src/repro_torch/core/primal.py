@@ -52,11 +52,12 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import apsp as apsp_mod
 from repro_torch.core.apsp import _INF, _sum_sources, normalize_backend
 from repro_torch.core.graphs import Topology, as_cap
-from repro_torch.core.mcf import (jit_cache_size, resolve_backend_density,
-                                  run_program)
+from repro_torch.core.mcf import (all_done, jit_cache_size,
+                                  resolve_backend_density, run_program)
 from repro_torch.device import resolve_device
 
 __all__ = ["PrimalResult", "PrimalBatchResult", "solve_primal",
@@ -197,7 +198,7 @@ def _primal_descend(caps, dems, n_valid, lr, tol, *, iters, check_every,
     sched = torch.tensor([_schedule(i, iters, lr) for i in range(iters)],
                          **f32)
     for i in range(iters):
-        if i and i % check_every == 0 and bool(done.all()):
+        if i and i % check_every == 0 and all_done(done):
             break
         l = torch.exp(z.double()).float().requires_grad_(True)
         alpha = alpha_of(l)
@@ -224,8 +225,7 @@ def _primal_descend(caps, dems, n_valid, lr, tol, *, iters, check_every,
             # FW blend with the line search on the max utilisation; the
             # first step adopts sp fully
             u_cur, u_sp = util(loads), util(sp)
-            with torch.profiler.record_function(
-                    "repro_torch.primal.line_search"):
+            with obs.span("repro_torch.primal.line_search", profiler=True):
                 gamma = _line_search(u_cur, u_sp)
             gamma = torch.clamp(gamma, min=1.0 / (t + 1.0))
             if i == 0:

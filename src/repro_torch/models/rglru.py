@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.device import resolve_device
 from repro_torch.models import layers, transformer as tfm
 from repro_torch.models.config import ModelConfig
@@ -178,7 +179,7 @@ def _rec_block(cfg: ModelConfig, x: torch.Tensor, lw: dict,
     u = layers.dense(h, lw["w_rnn_in"])
     u = shard(u, "ffn_hidden")
     # the range names the convolution and the recurrence in a profile
-    with torch.profiler.record_function("repro_torch.rglru"):
+    with obs.span("repro_torch.rglru", profiler=True):
         if cache is None:
             u, conv_state = _causal_conv(u, lw["conv_w"], lw["conv_b"])
             y, h_last = _rglru_scan(lw, u, None)

@@ -17,6 +17,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import obs
 from repro_torch import tree as tree_lib
 from repro_torch.parallel import sharding as shlib
 
@@ -79,7 +80,7 @@ class AdamW:
         """One clipped AdamW step: returns ``(params, state)``, the same
         tensors updated in place, and the new step count.  The profiler
         range ``repro_torch.adamw`` names its kernels in a trace."""
-        with torch.profiler.record_function("repro_torch.adamw"):
+        with obs.span("repro_torch.adamw", profiler=True):
             return self._update(params, grads, state)
 
     def _update(self, params, grads, state) -> tuple:

@@ -1065,3 +1065,68 @@ def test_cuda_chunks_do_not_change_a_lane(cuda, backend):
     assert [r.throughput for r in whole] == [r.throughput for r in chunked]
     assert [r.meta["final_ratio"] for r in whole] == \
         [r.meta["final_ratio"] for r in chunked]
+
+
+@pytest.mark.cuda
+def test_cuda_recorder_spans_share_the_device_traces_clock(cuda, tmp_path):
+    """The recorder's spans lie on the device trace's clock.  A small dual
+    solve (K1 squaring: no host read in the forward) is profiled with the
+    device alone traced while ``obs.record()`` is on; its spans are put on
+    the exported trace's axis by the trace's own time base
+    (``baseTimeNanoseconds``), nothing fitted.  Then each device-to-host
+    copy of the descent and the stream synchronisation the host waits in
+    right after it (what a host read issues) lie inside a read span, and
+    every K1 launch (K1 runs in the forward alone) inside a forward span."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import obs
+    from repro_torch.core import get_engine
+    topos, dems = _plan_pile([64] * 4, deg=6)
+    eng = get_engine("dual", iters=60, backend="squaring", devices=1)
+    eng.solve_batch(topos, dems)             # the library and every shape
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with obs.record() as rec:
+            eng.solve_batch(topos, dems)
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    data = json.loads(path.read_text())
+    base = data["baseTimeNanoseconds"]
+    ev = [e for e in data["traceEvents"] if e.get("ph") == "X"]
+
+    def mapped(*names):
+        return sorted((obs.trace_us(s.start_ns, base),
+                       obs.trace_us(s.end_ns, base))
+                      for s in rec.spans if s.name in names)
+
+    def inside(e, ivs):
+        return any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in ivs)
+    fwd = mapped("repro_torch.apsp.forward")
+    reads = mapped("repro_torch.apsp.backward.read",
+                   "repro_torch.descent.check")
+    lo, hi = fwd[0][0], mapped("repro_torch.apsp.backward")[-1][1]
+    runtime = [e for e in ev if e.get("cat") == "cuda_runtime"]
+    by_corr = {e["args"]["correlation"]: e for e in runtime
+               if "correlation" in e.get("args", {})}
+    launches = [by_corr[e["args"]["correlation"]] for e in ev
+                if e.get("cat") == "kernel"
+                and "minplus_acc_kernel" in e["name"]]
+    assert len(launches) >= 60 * 6          # 60 steps, 6 squarings each
+    assert all(inside(e, fwd) for e in launches)
+    next_on_thread = {}
+    for tid in {e["tid"] for e in runtime}:
+        mine = sorted((e for e in runtime if e["tid"] == tid),
+                      key=lambda e: e["ts"])
+        next_on_thread.update({id(a): b for a, b in zip(mine, mine[1:])})
+    copies = [by_corr[e["args"]["correlation"]] for e in ev
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e["name"]]
+    copies = [c for c in copies if lo <= c["ts"] <= hi]
+    issued = copies + [next_on_thread[id(c)] for c in copies
+                       if "Synchronize" in next_on_thread.get(
+                           id(c), {}).get("name", "")]
+    n_reads = sum(lo <= a <= hi for a, _ in reads)
+    assert n_reads > 60 and abs(len(copies) - n_reads) <= n_reads // 100
+    assert len(issued) > len(copies)
+    held = sum(inside(e, reads) for e in issued)
+    assert held >= 0.99 * len(issued), (held, len(issued))

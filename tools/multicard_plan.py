@@ -11,8 +11,7 @@ switch under permutation traffic, goes through the dual engine at tol 1e-4
 ("auto" resolves to "ell-bf": K3) as one plan with ``devices=1`` and as one
 with ``devices=k``, k the card count (shard j on ``cuda:j``, each card
 driven from a host thread of its own).  Per-lane bounds and iterations
-must be bit-equal; each plan's wall and each shard's wall
-(``BatchPlan.last_shard_seconds``, to its card's end) are printed.  Then
+must be bit-equal; each plan's wall is printed.  Then
 every other planned solver ("dual-demgrad", "primal", "ecmp", "ksp") on 8
 RRG(64, 8) at 100 steps, bit-equal across the two.  One JSON line a case,
 the card's name and power limit first; exits non-zero on any mismatch.
@@ -46,7 +45,7 @@ import chip_smoke as cs  # noqa: E402
 
 def run(eng, solver: str, topos, dems, device: str) -> dict:
     """One plan of ``eng`` over the pile: its values, iterations, meta
-    extras, wall and shard walls."""
+    extras and wall."""
     plan = eng.plan(topos, dems)
     kw = eng._solver_kw()
     if device == "cuda":
@@ -58,8 +57,8 @@ def run(eng, solver: str, topos, dems, device: str) -> dict:
              for k in ("ub", "dem_grad") if k in res[0].meta}
     return {"values": [r.value for r in res],
             "iterations": [r.iterations for r in res], "extra": extra,
-            "wall_s": wall, "shard_s": list(plan.last_shard_seconds),
-            "devices": plan.devices, "chunks": plan.stats.chunks,
+            "wall_s": wall, "devices": plan.devices,
+            "chunks": plan.stats.chunks,
             "compile_keys": plan.stats.compile_keys}
 
 
@@ -74,7 +73,6 @@ def compare(name: str, solver: str, make, topos, dems, k: int,
         "case": name, "solver": solver, "lanes": len(topos),
         "bits_equal": equal, "devices": [one["devices"], many["devices"]],
         "wall_s": [one["wall_s"], many["wall_s"]],
-        "shard_s": many["shard_s"], "one_device_s": one["shard_s"],
         "iterations_max": max(one["iterations"]),
         "compile_keys": [one["compile_keys"], many["compile_keys"]],
         "value_mean": float(np.mean(one["values"]))}), flush=True)
